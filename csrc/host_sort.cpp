@@ -5,7 +5,7 @@
 // but written as an out-of-place ping-pong with per-pass counting so large
 // (2^27+) oracle runs are fast. Exposed via a C ABI for ctypes.
 //
-// Build: make -C csrc   (produces libsortx_host.so)
+// Build: make -C csrc   (produces build/libsortx_host.so)
 
 #include <algorithm>
 #include <cstdint>
@@ -153,7 +153,7 @@ void radix_sort_impl(uint32_t* keys, uint32_t* vals, int64_t n,
 // ---- parallel k-way merge of sorted runs (out-of-core sort support) ----
 //
 // The reference transparently backs >max-alloc buffers in host memory
-// (Adl/CL/AdlCL.inl:373-378); the TPU-native analog is chunked
+// (Adl/CL/AdlCL.inl:373-378); the analog here is chunked
 // device-sorted runs merged on the host. Output-partitioned: each thread
 // co-ranks every run at its output boundary (binary search on the value
 // space, ties split in run order to keep the merge stable), then merges

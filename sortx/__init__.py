@@ -1,13 +1,14 @@
-"""sortx — a TPU-native parallel sort/scan framework.
+"""sortx — a parallel sort/scan framework in JAX.
 
-A from-scratch JAX/Pallas re-imagination of the capability set of
+A from-scratch JAX re-imagination of the capability set of
 takahiroharada/OCLRadixSort (an AMD-GPU OpenCL radix sort library):
 exclusive prefix scan, stable LSD radix sort of 32-bit keys and key-value
-pairs — redesigned for TPU lane/sublane geometry, XLA's compilation model,
-and multi-chip meshes (new scope the reference never had).
+pairs — built on XLA's sort and scan, one Pallas kernel where it was
+measured faster, and multi-device meshes (new scope the reference never
+had).
 
 Layer map (SURVEY.md §1 mapping):
-  Tahoe/ParallelPrimitives -> sortx.ops        (scan/sort Pallas kernels)
+  Tahoe/ParallelPrimitives -> sortx.ops        (scan/sort primitives)
   Adl device layer         -> sortx.runtime    (device/buffer/launcher/...)
   (absent in reference)    -> sortx.parallel   (multi-chip distributed sort)
   UnitTest                 -> tests/           (pytest vs the golden oracle)

@@ -1,8 +1,8 @@
 """Runtime and algorithm configuration.
 
-TPU-native analog of the reference's three config tiers (SURVEY §5):
-compile-time backend toggles (``Adl/AdlConfig.h:5-13``), algorithm tuning
-enums (``Tahoe/ParallelPrimitives/Pprims.h:22-33``), and the runtime
+Analog of the reference's three config tiers (SURVEY §5): compile-time
+backend toggles (``Adl/AdlConfig.h:5-13``), algorithm tuning enums
+(``Tahoe/ParallelPrimitives/Pprims.h:22-33``), and the runtime
 ``DeviceUtils::Config`` POD (``Adl/Adl.h:74-96``) — collapsed into one
 runtime dataclass, because JAX recompiles per-config instead of rebuilding.
 """
@@ -15,113 +15,53 @@ from typing import Optional
 
 __all__ = ["Config", "default_config", "set_default_config"]
 
+_GONE = "the Pallas bitonic/sample-sort engine it tuned was removed"
+
+# Knobs and environment variables that no longer exist, with the reason
+# a caller sees in the ValueError.
+_REMOVED_KNOBS = {
+    "engine_log_block": _GONE,
+    "engine_tile_elems": _GONE,
+    "engine_buckets": _GONE,
+    "engine_min_n": _GONE,
+    "engine_headroom": _GONE,
+    "engine_chunk_elems": _GONE,
+    "engine_dma_slots": _GONE,
+    "engine_phase_sort": _GONE,
+    "interpret": "no Pallas kernel of the public API runs in interpret mode",
+    "scan_tile_elems": "the scan kernel it tuned was replaced",
+    "scan_use_mxu": "the scan kernel it tuned was replaced",
+    "dist_exchange": "the 'ring' schedule was removed; 'a2a' always runs",
+    "engine": ("the Pallas engines it chose were removed; sortx.ops.dispatch "
+               "picks each implementation from the backend and the input"),
+    "bits_per_pass": "no sort pass of sortx reads it; XLA's sort sets its own",
+}
+_REMOVED_VALUES = {
+    ("dist_local_merge", "tree"): "the bitonic merge tree was removed",
+}
+_REMOVED_ENV = ("SORTX_ENGINE", "SORTX_INTERPRET")
+
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Tuning knobs for the sort/scan engine.
+    """Tuning knobs for the sort/scan primitives (analog of the
+    reference tuning enums, ``Pprims.h:22-33``)."""
 
-    Analog of the reference tuning enums (``Pprims.h:22-33``):
-    ``SCAN_BLOCK_SIZE`` -> ``scan_tile_elems``; ``R32SORT_BITS_PER_PASS`` ->
-    ``bits_per_pass``; ``R32SORT_WG_SIZE``/``ELEMENTS_PER_WORK_ITEM`` have no
-    TPU analog (the lane geometry is fixed 8x128) — the free parameter is the
-    per-grid-step tile size instead.
-    """
-
-    # Radix width per sort pass. The reference GPU path used 4 (an LDS
-    # packed-counter constraint, RadixSort32Kernels.cl:30); its CPU path used
-    # 8 (RadixSort.h:41). On TPU, VMEM holds radix-256 histograms trivially.
-    bits_per_pass: int = 8
-
-    # Elements per scan grid step (must be a multiple of 8*128).
-    # Re-swept round 5 under honest (differenced, min-of-3) timing at
-    # 2^27 on v5e: 2^18 = 1.76 ms (611 GB/s r+w) vs 2^19 = 2.55 ms —
-    # the earlier "2^19 fastest (1.82 ms)" figure came from the
-    # pre-round-5 timing method (scratch/r5_scan_sweep.py; 2^20
-    # exceeds the 16MB scoped-VMEM limit). MXU cumsum stays ~2x the
-    # VPU form (1.76 vs 4.01 ms).
-    scan_tile_elems: int = 1 << 18
-
-    # Elements per sort tile (per-tile histogram / local-sort granularity).
+    # Elements per tile of the per-tile digit histogram.
     sort_tile_elems: int = 1 << 14
-
-    # Offload the scan's lane-cumsum to the MXU (four bf16 byte-plane
-    # triangular matmuls, bit-exact) instead of VPU roll chains.
-    # Measured 13-20% faster at 2^27 on v5e.
-    scan_use_mxu: bool = True
-
-    # "host" forces the jnp/XLA fallback engine; "pallas" forces the
-    # Pallas bitonic engine; "hybrid" forces the sample-sort+mover
-    # pipeline; "auto" picks Pallas on TPU, fallback elsewhere.
-    # Analog of the reference's enableSortOnDevice gate (Pprims.cpp:189-198).
-    engine: str = "auto"
-
-    # Bitonic engine: log2 of the per-block VMEM span (kernel A/B fuse
-    # all compare-exchange layers below this distance in one HBM pass).
-    # 2^17 wins once stage tails run transposed (measured at 2^27 u32:
-    # 81.7 ms vs 86.5 at 2^16 — one fewer B pass, two fewer D passes);
-    # 2^18 does not fit scoped VMEM. Multi-stream sorts shrink the
-    # effective block per stream-count inside bitonic_sort_streams.
-    engine_log_block: int = 17
-
-    # --- hybrid sample-sort engine (ops/sort_pallas.py) ---------------
-    # Phase-A tile length target (elements per locally-sorted segment).
-    engine_tile_elems: int = 1 << 21
-    # Bucket count for the partition; 0 = auto (~n/2^18, power of two).
-    engine_buckets: int = 0
-    # engine="auto" uses the XLA engine below this size (the hybrid's
-    # fixed costs only pay off for large n); engine="pallas" ignores it.
-    engine_min_n: int = 1 << 22
-    # Bucket capacity headroom over the mean (sampling slack). Inputs
-    # whose max bucket exceeds cap fall back to a full lax.sort in-graph.
-    engine_headroom: float = 1.10
-    # Mover output-chunk size and DMA pipeline depth.
-    engine_chunk_elems: int = 1 << 14
-    engine_dma_slots: int = 4
-    # Phase-A/B segment sorter for the hybrid: "bitonic" = the Pallas
-    # row network (sort_rows machinery; measured ~2.9 GK/s at 2^16 rows
-    # vs lax.sort's 0.39 GK/s cap — the round-2 hybrid was only ever
-    # measured with XLA phases); "xla" = batched lax.sort.
-    engine_phase_sort: str = "bitonic"
 
     # Distributed dense-exchange cells are padded to 2*ceil(m/D) (the
     # diagonal cell never crosses the wire), with an in-graph fallback to
     # full-m cells when the gathered count matrix overflows the cap —
     # O(m) wire traffic per shard instead of O(D*m). False forces the
-    # old always-correct full-m padding unconditionally.
+    # always-correct full-m padding unconditionally.
     dist_dense_bounded: bool = True
 
-    # Distributed step-5 local merge of the d received sorted runs:
-    # "tree" = pairwise bitonic-merge tree (Pallas engine only, pow2
-    # meshes; ~8.4x cheaper per element than a re-sort on v5e, with an
-    # in-graph skew fallback); "native" = csrc parallel k-way merge
-    # via pure_callback (CPU backend only; 4-9x the re-sort,
-    # scratch/r4_native_merge_ab.py); "rank" = searchsorted co-ranking
-    # + scatter (measured 3-14x SLOWER than XLA:CPU's ~21 ns/elem
-    # radix-path sort — kept as an option, scratch/r4_merge_ab.py);
-    # "sort" = full re-sort of the receive buffer. "auto" = tree on
-    # the network engine, sort elsewhere ("native" wins standalone but
-    # loses ~10% in context under shard_map — measured negative,
-    # scratch/r4_native_dist_ab.py).
+    # Distributed local merge of the d received sorted runs: "sort" =
+    # full re-sort of the receive buffer; "rank" = searchsorted
+    # co-ranking + scatter; "native" = csrc parallel k-way merge via
+    # pure_callback (CPU backend only). "auto" = "sort".
     dist_local_merge: str = "auto"
-
-    # Distributed exchange schedule. "a2a" = one all-to-all collective
-    # (ragged on ICI, dense fallback elsewhere) followed by the local
-    # merge. "ring" = d-1 ppermute hops, each shipping the cell
-    # destined t hops ahead, with the pairwise bitonic merges of
-    # already-arrived runs interleaved BETWEEN hops — the
-    # exchange/merge overlap schedule: on TPU the async
-    # collective-permutes hide behind the merge compute (XLA's latency
-    # hiding scheduler), and hop t rides neighbor ICI links. Needs the
-    # network engine and pow2 d (falls back to "a2a" otherwise; skewed
-    # arrivals cond-fall-back in-graph). Measured on the 4-core CPU
-    # mesh: NEUTRAL (XLA:CPU runs collectives synchronously — overlap
-    # probe in scratch/r5_dist_phases.py measured zero concurrency),
-    # so "a2a" stays the CPU default; "ring" is the ICI schedule.
-    dist_exchange: str = "a2a"
-
-    # Run Pallas kernels in interpreter mode (debugging; analog of the
-    # reference's debug-build forced syncs, AdlKernelUtilsCL.inl:660-662).
-    interpret: bool = False
 
     # Per-launch profiling (analog of Device::toggleProfiling ->
     # ProfileCL.*.csv, AdlKernelUtilsCL.inl:664-677).
@@ -129,38 +69,40 @@ class Config:
     profile_csv: Optional[str] = None
 
     def __post_init__(self):
-        if self.bits_per_pass not in (1, 2, 4, 8):
-            raise ValueError("bits_per_pass must be one of 1, 2, 4, 8")
-        if self.scan_tile_elems % 1024 != 0:
-            raise ValueError("scan_tile_elems must be a multiple of 1024")
+        for (field, value), why in _REMOVED_VALUES.items():
+            if getattr(self, field) == value:
+                raise ValueError(f"Config({field}={value!r}) was removed: "
+                                 f"{why}")
         if self.sort_tile_elems % 1024 != 0:
             raise ValueError("sort_tile_elems must be a multiple of 1024")
-        if self.engine_chunk_elems % 1024 != 0:
-            raise ValueError("engine_chunk_elems must be a multiple of 1024")
-        if self.engine_headroom < 1.0:
-            raise ValueError("engine_headroom must be >= 1.0")
-        if self.engine not in ("auto", "pallas", "hybrid", "host"):
-            raise ValueError("engine must be auto|pallas|hybrid|host")
-        if self.engine_phase_sort not in ("bitonic", "xla"):
-            raise ValueError("engine_phase_sort must be bitonic|xla")
-        if self.dist_local_merge not in ("auto", "tree", "native", "rank",
-                                         "sort"):
-            raise ValueError(
-                "dist_local_merge must be auto|tree|native|rank|sort")
-        if self.dist_exchange not in ("a2a", "ring"):
-            raise ValueError("dist_exchange must be a2a|ring")
-        if not (10 <= self.engine_log_block <= 22):
-            raise ValueError("engine_log_block must be in 10..22")
-
-    @property
-    def radix(self) -> int:
-        return 1 << self.bits_per_pass
+        if self.dist_local_merge not in ("auto", "native", "rank", "sort"):
+            raise ValueError("dist_local_merge must be auto|native|rank|sort")
 
 
-_default = Config(
-    engine=os.environ.get("SORTX_ENGINE", "auto"),
-    interpret=bool(int(os.environ.get("SORTX_INTERPRET", "0"))),
-)
+_dataclass_init = Config.__init__
+
+
+def _init(self, *args, **kwargs):
+    for name in kwargs.keys() & _REMOVED_KNOBS.keys():
+        raise ValueError(f"Config({name}=...) was removed: "
+                         f"{_REMOVED_KNOBS[name]}")
+    _dataclass_init(self, *args, **kwargs)
+
+
+Config.__init__ = _init
+
+
+def check_removed_env(environ=os.environ) -> None:
+    """Refuse environment variables that used to select the removed
+    engine, so that setting one is never silently ignored."""
+    for name in _REMOVED_ENV:
+        if name in environ:
+            raise ValueError(f"environment variable {name} was removed: "
+                             f"{_GONE}")
+
+
+check_removed_env()
+_default = Config()
 
 
 def default_config() -> Config:

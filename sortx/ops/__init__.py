@@ -10,8 +10,7 @@ from .segmented import sort_kv_segments, sort_segments
 from .segscan import scan_by_key, scan_segments
 from .unique import unique
 from .select import kth_value, median, top_k
-from .shuffle import apply_runs, build_piece_plan
-from .scan import scan, cumsum_lanes, cumsum_sublanes
+from .scan import scan
 from .sort import sort, sort_kv
 from .out_of_core import (sort_large, sort_kv_large,
                           check_device_capacity, device_capacity_keys)
@@ -35,8 +34,6 @@ __all__ = [
     "sum_by_key",
     "merge",
     "merge_kv",
-    "apply_runs",
-    "build_piece_plan",
     "sort_u64",
     "sort_kv_u64",
     "sort_segments",
@@ -52,6 +49,4 @@ __all__ = [
     "sort_xla",
     "sort_kv_xla",
     "unique",
-    "cumsum_lanes",
-    "cumsum_sublanes",
 ]

@@ -2,7 +2,7 @@
 
 The reference exposes only scan/sort/sort_kv; these are the standard
 companions users expect from a sort library, built stably on the same
-engines (so they inherit every engine's correctness guarantees).
+XLA sort (so they inherit its correctness guarantees).
 """
 
 from __future__ import annotations
@@ -10,23 +10,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..config import Config, default_config
+from ..config import Config
 from ..runtime.launcher import profiled
 from .sort import sort_kv
 from .sort_xla import sort_multi_xla
 
 __all__ = ["argsort", "lexsort", "sort_u64", "sort_kv_u64"]
-
-
-def _use_engine(n: int, cfg: Config) -> bool:
-    from .sort_pallas import _FLOOR
-
-    if n < _FLOOR:
-        return False
-    if cfg.engine == "pallas":
-        return True
-    return (cfg.engine == "auto" and jax.default_backend() == "tpu"
-            and n >= cfg.engine_min_n)
 
 
 @profiled("argsort")
@@ -35,50 +24,24 @@ def argsort(keys, sort_bits: int | None = None, *,
     """Stable argsort: the permutation that sorts ``keys``.
 
     Equivalent to numpy's ``argsort(kind='stable')`` for u32/i32/f32
-    keys (64-bit u64/i64/f64 too under x64 mode). Engine path runs a
-    2-stream (masked key, idx) network — the idx stream IS the result,
-    so no value lane rides along (~1.5x the 3-stream sort_kv route this
-    used to take). ``descending=True`` reverses the key order; equal
-    keys still keep ascending original positions (stable descending,
-    like ``argsort(-keys)`` for ints).
+    keys (64-bit u64/i64/f64 too under x64 mode): a stable key-value
+    sort whose values are the indices. ``descending=True`` reverses the
+    key order; equal keys still keep ascending original positions
+    (stable descending, like ``argsort(-keys)`` for ints).
     """
-    from .sort import (_check_keys, _order_mask, _resolve_sort_bits,
-                       _to_radix_u32, _to_radix_u64)
+    from .sort import _check_keys, _resolve_sort_bits, _to_radix_u64
 
-    cfg = config or default_config()
     _check_keys(keys, allow64=True)
     sort_bits = _resolve_sort_bits(keys, sort_bits, what="argsort")
     n = keys.shape[0]
+    idx = jnp.arange(n, dtype=jnp.uint32)
     if sort_bits == 64:
         hi, lo, _ = _to_radix_u64(keys)
         if descending:
             hi, lo = ~hi, ~lo
-        idx = jnp.arange(n, dtype=jnp.uint32)
-        if _use_engine(n, cfg):
-            from .sort_pallas import _bitonic
-
-            # (hi, lo, idx) all in the comparator: idx breaks ties =
-            # stability, and the idx stream IS the result.
-            perm = _bitonic((hi, lo, idx), 3, n, cfg)[2]
-        else:
-            lo1, (hi1, i1) = sort_multi_xla(lo, (hi, idx))
-            _, (_, i2) = sort_multi_xla(hi1, (lo1, i1))
-            perm = i2
-        return perm.astype(jnp.int32)
-    if _use_engine(n, cfg):
-        from .sort_pallas import _bitonic, _nondecreasing
-
-        k, _ = _to_radix_u32(keys)
-        masked = (k if sort_bits >= 32
-                  else k & jnp.uint32((1 << sort_bits) - 1))
-        if descending:
-            masked = masked ^ _order_mask(sort_bits)
-        idx = jnp.arange(n, dtype=jnp.uint32)
-        perm = jax.lax.cond(
-            _nondecreasing(masked), lambda: idx,
-            lambda: _bitonic((masked, idx), 2, n, cfg)[1])
-        return perm.astype(jnp.int32)
-    idx = jnp.arange(n, dtype=jnp.uint32)
+        lo1, (hi1, i1) = sort_multi_xla(lo, (hi, idx))
+        _, (_, i2) = sort_multi_xla(hi1, (lo1, i1))
+        return i2.astype(jnp.int32)
     _, perm = sort_kv(keys, idx, sort_bits, descending=descending,
                       config=config)
     return perm.astype(jnp.int32)
@@ -98,12 +61,11 @@ def lexsort(keys, *, descending: bool = False,
     contribute a (hi, lo) word pair). ``descending=True`` reverses the
     lexicographic order; equal rows still keep ascending positions.
 
-    The engine path runs ONE N-stream network pass with all columns in
-    the comparator (the idx tie-break stream is the result) — no column
-    is ever re-sorted, unlike numpy's column-by-column LSD passes.
-    The reference library has no multi-key sort; this is the natural
-    generalization of its KV pairs (``RadixSortKeyValueKernels.cl``) on
-    an engine whose comparator is already N-stream lexicographic.
+    One ``lax.sort`` with every column in the comparator (the index
+    stream is the result) — no column is re-sorted, unlike numpy's
+    column-by-column LSD passes. The reference library has no multi-key
+    sort; this is the natural generalization of its KV pairs
+    (``RadixSortKeyValueKernels.cl``).
     """
     from .sort import _check_key_dtype, _to_radix_u32, _to_radix_u64
 
@@ -130,17 +92,9 @@ def lexsort(keys, *, descending: bool = False,
     if descending:
         streams = [~s for s in streams]    # complement = reverse lex order
     nk = len(streams)
-    cfg = config or default_config()
     idx = jnp.arange(n, dtype=jnp.uint32)
     if n <= 1:
         return idx.astype(jnp.int32)
-    # VMEM shrinks the network block by ceil(log2(streams)); past 8
-    # streams the XLA comparator sort is the better program.
-    if _use_engine(n, cfg) and nk + 1 <= 8:
-        from .sort_pallas import _bitonic
-
-        perm = _bitonic((*streams, idx), nk + 1, n, cfg)[-1]
-        return perm.astype(jnp.int32)
     out = jax.lax.sort([*streams, idx], num_keys=nk, is_stable=True)
     return out[-1].astype(jnp.int32)
 
@@ -150,26 +104,17 @@ def sort_u64(hi, lo, *, descending: bool = False,
              config: Config | None = None):
     """Stable sort of 64-bit keys given as (hi, lo) u32 halves.
 
-    On the TPU engine this is a SINGLE pass: the bitonic network
-    compares (hi, lo) lexicographically — one 2-stream sort instead of
-    the reference-style two LSD word passes (which remain the fallback
-    on other backends). Returns sorted (hi, lo).
+    Two reference-style LSD word passes (stable ``sort_kv`` by lo, then
+    by hi). Returns sorted (hi, lo).
     """
     if hi.shape != lo.shape:
         raise ValueError("hi and lo must have the same shape")
     if hi.dtype != jnp.uint32 or lo.dtype != jnp.uint32:
         raise TypeError("sort_u64 expects uint32 hi/lo halves")
-    cfg = config or default_config()
     if descending:
         # Complementing BOTH words reverses the 64-bit lexicographic
         # order; run ascending and complement back.
         hi, lo = ~hi, ~lo
-    if _use_engine(hi.shape[0], cfg):
-        from .sort_pallas import _bitonic
-
-        n = hi.shape[0]
-        h2, l2 = _bitonic((hi, lo), 2, n, cfg)
-        return (~h2, ~l2) if descending else (h2, l2)
     lo1, hi1 = sort_kv(lo, hi, config=config)
     hi2, lo2 = sort_kv(hi1, lo1, config=config)
     return (~hi2, ~lo2) if descending else (hi2, lo2)
@@ -181,42 +126,19 @@ def sort_kv_u64(hi, lo, values, *, stable: bool = True,
                 config: Config | None = None):
     """Stable 64-bit-key sort carrying a 32-bit payload.
 
-    Returns (hi, lo, values) sorted by the 64-bit (hi,lo) key, stable.
-    Engine path: one 4-stream network pass, (hi, lo, idx) comparator.
-    ``stable=False`` drops the idx tie-break stream (3 streams, ~1.3x
-    faster): equal-key value order is then unspecified.
+    Returns (hi, lo, values) sorted by the 64-bit (hi,lo) key, stable:
+    two 3-operand LSD passes. ``stable=False`` is accepted for API
+    symmetry with ``sort_kv``; the result is stable either way.
     """
     if not (hi.shape == lo.shape == values.shape):
         raise ValueError("hi, lo, values must have the same shape")
     if hi.dtype != jnp.uint32 or lo.dtype != jnp.uint32:
         raise TypeError("sort_kv_u64 expects uint32 hi/lo halves")
-    cfg = config or default_config()
+    del stable
     if descending:
         hi, lo = ~hi, ~lo
-    if _use_engine(hi.shape[0], cfg) and values.dtype.itemsize == 4:
-        from .sort_pallas import _bitonic
-
-        n = hi.shape[0]
-        vu = (values.view(jnp.uint32) if values.dtype != jnp.uint32
-              else values)
-        if not stable:
-            # Same pad subtlety as sort_kv(stable=False): at exact
-            # power-of-two n there are no pad slots, so a key-only
-            # comparator with pair-consistent tie-breaking is valid;
-            # ragged n must put the value in the comparator so pad
-            # triples (FF,FF,FF) never displace a real (FF,FF,v).
-            if n >= 1024 and (n & (n - 1)) == 0:
-                h2, l2, v2 = _bitonic((hi, lo, vu), 2, n, cfg,
-                                      tie_break=True)
-            else:
-                h2, l2, v2 = _bitonic((hi, lo, vu), 3, n, cfg)
-        else:
-            idx = jnp.arange(n, dtype=jnp.uint32)
-            h2, l2, _, v2 = _bitonic((hi, lo, idx, vu), 3, n, cfg)
-    else:
-        lo1, (hi1, v1) = sort_multi_xla(lo, (hi, values))
-        h2, (l2, v2) = sort_multi_xla(hi1, (lo1, v1))
+    lo1, (hi1, v1) = sort_multi_xla(lo, (hi, values))
+    h2, (l2, v2) = sort_multi_xla(hi1, (lo1, v1))
     if descending:
         h2, l2 = ~h2, ~l2
-    return h2, l2, (v2.view(values.dtype)
-                    if v2.dtype != values.dtype else v2)
+    return h2, l2, v2

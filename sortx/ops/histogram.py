@@ -1,22 +1,18 @@
 """Public digit-histogram primitive.
 
-Exposes the engine's StreamCountKernel analog
-(``RadixSort32Kernels.cl:176-236``) as a standalone op: counts of
-``(x >> shift) & (2^bits - 1)`` over a u32 array — per tile or global.
-On TPU this runs the Pallas one-hot-reduction kernel (histograms via
-scatter-add are pathological on TPU; this formulation is streaming).
+Exposes the StreamCountKernel analog (``RadixSort32Kernels.cl:176-236``)
+as a standalone op: counts of ``(x >> shift) & (2^bits - 1)`` over a u32
+array — per tile or global — as a one-hot reduction in plain XLA.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..config import Config, default_config
 from ..runtime.launcher import profiled
 from ..utils.math import cdiv
-from .radix_kernels import LANES, tile_histogram
 
 __all__ = ["histogram"]
 
@@ -54,38 +50,12 @@ def histogram(x, bits: int = 8, shift: int = 0, *,
 
     xi = x.view(jnp.uint32) if x.dtype == jnp.int32 else x
 
-    engine = cfg.engine
-    if engine == "auto":
-        engine = "pallas" if jax.default_backend() == "tpu" else "host"
-    tile_rows = max(8, min(2048, cfg.sort_tile_elems // LANES))
-
-    if engine == "host":
-        d = ((xi >> jnp.uint32(shift)) & jnp.uint32(radix - 1)).astype(
-            jnp.int32)
-        if not per_tile:
-            return jnp.sum(jax.nn.one_hot(d, radix, dtype=jnp.int32), axis=0)
-        tile = tile_rows * LANES
-        padded = cdiv(n, tile) * tile
-        d = jnp.pad(d, (0, padded - n), constant_values=radix)
-        oh = jax.nn.one_hot(d.reshape(-1, tile), radix, dtype=jnp.int32)
-        return jnp.sum(oh, axis=1)
-
-    tile = tile_rows * LANES
+    d = ((xi >> jnp.uint32(shift)) & jnp.uint32(radix - 1)).astype(
+        jnp.int32)
+    if not per_tile:
+        return jnp.sum(jax.nn.one_hot(d, radix, dtype=jnp.int32), axis=0)
+    tile = cfg.sort_tile_elems
     padded = cdiv(n, tile) * tile
-    if padded != n:
-        # Pad with 0xFFFFFFFF, then subtract the pad count from the bucket
-        # the pad keys' digit actually lands in. For shift+bits > 32 the
-        # high bits of the digit window fall off the key, so that digit is
-        # (0xFFFFFFFF >> shift) & (radix-1), NOT necessarily radix-1.
-        xi = jnp.pad(xi, (0, padded - n),
-                     constant_values=np.uint32(0xFFFFFFFF))
-    counts = tile_histogram(xi.reshape(padded // LANES, LANES),
-                            jnp.int32(shift), radix=radix,
-                            tile_rows=tile_rows, interpret=cfg.interpret)
-    counts = counts[:, :radix]
-    if padded != n:
-        pad_digit = (0xFFFFFFFF >> shift) & (radix - 1)
-        counts = counts.at[-1, pad_digit].add(-(padded - n))
-    if per_tile:
-        return counts
-    return jnp.sum(counts, axis=0)
+    d = jnp.pad(d, (0, padded - n), constant_values=radix)
+    oh = jax.nn.one_hot(d.reshape(-1, tile), radix, dtype=jnp.int32)
+    return jnp.sum(oh, axis=1)

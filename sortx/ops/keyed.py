@@ -4,19 +4,18 @@ Beyond-reference breadth (the reference exposes only scan/sort/sort_kv,
 ``Pprims.h:35-41``) — these are the CUB-family companions
 (``DevicePartition`` / ``DeviceSelect`` / ``DeviceReduce::ReduceByKey``
 / ``DeviceRunLengthEncode``) every sort/scan library grows, built on
-the same engines so they inherit the engines' correctness guarantees.
+the same sort and scan so they inherit their correctness guarantees.
 
-TPU-first design: this ISA has no scattered stores (docs/DESIGN_NOTES),
-so the classic "flag -> scan -> scatter" compaction shape cannot run.
-Two scatter-free shapes replace it:
+Two scatter-free shapes replace the classic "flag -> scan -> scatter"
+compaction:
 
   * moving-compaction (``partition``): the compaction IS a stable
-    1-bit key-value sort on the flag — the engine's cheapest
-    configuration — carrying the DATA as the value lane;
+    1-bit key-value sort on the flag, carrying the DATA as the value
+    lane;
   * index-compaction (``reduce_by_key`` / ``run_length_encode``): the
     same 1-bit sort carries POSITIONS; the first ``size`` positions
     drive O(size) gathers, and the per-run sums come from the flat
-    Pallas ``sortx.scan`` sampled at the run boundaries (sum of run i
+    ``sortx.scan`` sampled at the run boundaries (sum of run i
     = g[start[i+1]] - g[start[i]]) — no segmented reduction pass.
 
 Outputs are fixed-size (static ``size`` bound, ``jnp.unique``-style)

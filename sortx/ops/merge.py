@@ -1,18 +1,13 @@
-"""merge / merge_kv — combine two pre-sorted arrays in one network stage.
+"""merge / merge_kv — combine two pre-sorted arrays without a re-sort.
 
 Beyond-reference primitive (the reference re-sorts from scratch; its
 only primitives are scan/sort, ``Tahoe/ParallelPrimitives/Pprims.h:35-41``).
-A bitonic MERGE is the final stage (s = log n) of the full bitonic
-network: log n compare-exchange layers instead of the full sort's
-~log^2 n / 2, so merging two sorted 2^26 halves costs ~7% of re-sorting
-2^27 — the concatenation ``[sorted_a, pads, reverse(sorted_b)]`` is a
-bitonic sequence by construction and one ascending merge stage
-(``bitonic_merge_streams``) sorts it.
+Each element's output position is its own index plus its rank in the
+other input (two ``searchsorted`` calls), then one scatter per stream.
 
 Tie semantics match ``std::merge``/``numpy``: on equal keys, elements of
 ``a`` precede elements of ``b``, and each input's internal order is
-preserved (``merge_kv`` guarantees this with an index tie-break stream;
-for keys-only output the property is vacuous).
+preserved (for keys-only output the property is vacuous).
 
 Precondition: each input is already sorted in the requested order
 (ascending, or descending when ``descending=True``). Like
@@ -22,17 +17,12 @@ unspecified output.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-import numpy as np
 
-from ..config import Config, default_config
+from ..config import Config
 from ..runtime.launcher import profiled
 
 __all__ = ["merge", "merge_kv"]
-
-_FF = 0xFFFFFFFF
-
 
 def _check_pair(a, b):
     from .sort import _check_keys
@@ -44,18 +34,8 @@ def _check_pair(a, b):
                         f"{a.dtype} vs {b.dtype}")
 
 
-def _use_engine(n: int, cfg: Config) -> bool:
-    from .sort_pallas import _FLOOR
-
-    if n < _FLOOR:
-        return False
-    if cfg.engine in ("pallas", "hybrid"):
-        return True
-    return cfg.engine == "auto" and jax.default_backend() == "tpu"
-
-
 def _merge_xla(ka, kb, payloads_a=(), payloads_b=()):
-    """Stable positional merge: rank arithmetic + scatter (host engine).
+    """Stable positional merge: rank arithmetic + scatter.
 
     Element i of a lands at i + |{b < a[i]}| (side='left'); element j of
     b lands at j + |{a <= b[j]}| (side='right') — disjoint and complete,
@@ -73,51 +53,16 @@ def _merge_xla(ka, kb, payloads_a=(), payloads_b=()):
     return outs
 
 
-def _merge_pallas(ka, kb, payloads_a=(), payloads_b=(), *, stable_idx: bool,
-                  cfg: Config):
-    """One ascending bitonic-merge stage over [a, pads, reverse(b)]."""
-    from .bitonic import bitonic_merge_streams
-
-    na, nb = ka.shape[0], kb.shape[0]
-    nt = na + nb
-    N = 1 << max(10, (nt - 1).bit_length())
-    pad = N - nt
-    ff = np.uint32(_FF)
-
-    def cat(xa, xb, fill):
-        return jnp.concatenate(
-            [xa, jnp.full((pad,), fill, jnp.uint32), jnp.flip(xb)])
-
-    streams = [cat(ka, kb, ff)]
-    num_keys = 1
-    if stable_idx:
-        # a gets 0..na-1, b gets na..nt-1: equal keys order a-first and
-        # preserve each input's internal order. Pad idx = 0xffffffff >
-        # any real index, so legitimate 0xffffffff keys stay ahead of
-        # pad slots and the [:nt] slice is exact.
-        ia = jnp.arange(na, dtype=jnp.uint32)
-        ib = jnp.arange(na, nt, dtype=jnp.uint32)
-        streams.append(cat(ia, ib, ff))
-        num_keys = 2
-    for xa, xb in zip(payloads_a, payloads_b):
-        streams.append(cat(xa, xb, np.uint32(0)))
-    out = bitonic_merge_streams(streams, num_keys, interpret=cfg.interpret,
-                                log_block=cfg.engine_log_block)
-    return [out[0][:nt]] + [o[:nt] for o in out[num_keys:]]
-
-
 @profiled("merge")
 def merge(a, b, *, descending: bool = False, config: Config | None = None):
     """Merge two sorted key arrays into one sorted array.
 
     Inputs must each already be sorted (ascending, or descending when
-    ``descending=True``); dtypes u32/i32/f32 as in ``sort``. On the TPU
-    engine this is a single log n-layer network stage (~14x cheaper
-    than re-sorting at 2^27).
+    ``descending=True``); dtypes u32/i32/f32 as in ``sort``.
     """
     from .sort import _order_mask, _to_radix_u32
 
-    cfg = config or default_config()
+    del config
     _check_pair(a, b)
     if a.shape[0] == 0:
         return b
@@ -128,10 +73,7 @@ def merge(a, b, *, descending: bool = False, config: Config | None = None):
     if descending:
         ka = ka ^ _order_mask(32)
         kb = kb ^ _order_mask(32)
-    if _use_engine(a.shape[0] + b.shape[0], cfg):
-        (out,) = _merge_pallas(ka, kb, stable_idx=False, cfg=cfg)
-    else:
-        (out,) = _merge_xla(ka, kb)
+    (out,) = _merge_xla(ka, kb)
     if descending:
         out = out ^ _order_mask(32)
     return undo(out)
@@ -148,7 +90,7 @@ def merge_kv(keys_a, values_a, keys_b, values_b, *,
     """
     from .sort import _order_mask, _to_radix_u32
 
-    cfg = config or default_config()
+    del config
     _check_pair(keys_a, keys_b)
     if values_a.shape != keys_a.shape or values_b.shape != keys_b.shape:
         raise ValueError("keys and values must have the same shape")
@@ -163,17 +105,7 @@ def merge_kv(keys_a, values_a, keys_b, values_b, *,
     if descending:
         ka = ka ^ _order_mask(32)
         kb = kb ^ _order_mask(32)
-    if values_a.dtype.itemsize == 4:
-        va = values_a.view(jnp.uint32)
-        vb = values_b.view(jnp.uint32)
-        use_eng = _use_engine(keys_a.shape[0] + keys_b.shape[0], cfg)
-    else:
-        va, vb, use_eng = values_a, values_b, False
-    if use_eng:
-        out_k, out_v = _merge_pallas(ka, kb, (va,), (vb,),
-                                     stable_idx=True, cfg=cfg)
-    else:
-        out_k, out_v = _merge_xla(ka, kb, (va,), (vb,))
+    out_k, out_v = _merge_xla(ka, kb, (values_a,), (values_b,))
     if descending:
         out_k = out_k ^ _order_mask(32)
-    return undo(out_k), out_v.view(values_a.dtype)
+    return undo(out_k), out_v

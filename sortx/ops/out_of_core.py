@@ -1,11 +1,11 @@
 """Out-of-core sort: host-staged chunked device sorts + native k-way merge.
 
-TPU-native analog of the reference's >max-alloc host-backed buffers
+Analog of the reference's >max-alloc host-backed buffers
 (``Adl/CL/AdlCL.inl:373-378``): allocations beyond device memory live in
 host RAM and stream through the device in chunks. Here the device sorts
-HBM-sized chunks (the fast Pallas engine) and the multithreaded native
-merge (``csrc/host_sort.cpp`` ``sortx_host_merge_u32``) assembles the
-runs on the host — so ``n`` is bounded by host RAM, not HBM.
+chunks that fit its memory and the multithreaded native merge
+(``csrc/host_sort.cpp`` ``sortx_host_merge_u32``) assembles the runs on
+the host — so ``n`` is bounded by host RAM, not device memory.
 
 Also home of the typed capacity contract: ``check_device_capacity``
 raises ``CapacityError`` (with the computed limit and a pointer at
@@ -161,50 +161,48 @@ def sort_kv_large(keys, values, *, descending: bool = False,
     return undo(ko), vo.view(vals_np.dtype)
 
 
-def device_capacity_keys(n_streams: int = 1) -> int | None:
-    """Max sortable n on the current default device, or None if unknown.
+# Device bytes a sort of n elements takes, per byte of the operands it
+# sorts (input, output, and CUB's double buffer and scratch), by
+# device_kind. From compiled.memory_analysis() at n = 2^27 on an NVIDIA
+# H100 80GB HBM3 (400 W power limit): u32 keys 12.14 B/key (4 operand
+# bytes), stable u32/u32 key-value 24.16 (8), 4-bit partial keys 24.16
+# (8), u32 keys with u64 values 36.19 (12), and u64 keys — two 32-bit
+# passes — 36.16, which ops.sort counts as 12 operand bytes.
+_BYTES_PER_OPERAND_BYTE = {"NVIDIA H100 80GB HBM3": 3.05}
 
-    The bitonic engine pads to the next power of two and holds one
-    input + one output HBM buffer per stream; capacity is therefore the
-    largest power of two p with p * 4B * n_streams * 2 <= ~90% of HBM.
+
+def device_capacity_keys(operand_bytes: int = 4) -> int | None:
+    """Largest n a single-device sort of ``operand_bytes`` per element
+    fits in, or None on the CPU backend (host memory, no device limit).
+
+    Raises ValueError on an accelerator with no measured memory model.
     """
     import jax
 
-    try:
-        stats = jax.devices()[0].memory_stats() or {}
-        limit = stats.get("bytes_limit")
-    except Exception:
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
         return None
-    if not limit:
-        return None
-    budget = int(limit * 0.90)
-    p = 1
-    while p * 8 * n_streams <= budget:  # p*4B*streams*2 buffers
-        p *= 2
-    return p // 2  # largest power of two that fits
+    factor = _BYTES_PER_OPERAND_BYTE.get(dev.device_kind)
+    if factor is None:
+        raise ValueError(
+            f"no sort memory model for device {dev.device_kind!r}; "
+            f"measure one and add it to "
+            f"sortx.ops.out_of_core._BYTES_PER_OPERAND_BYTE")
+    limit = dev.memory_stats()["bytes_limit"]
+    return int(limit // (factor * operand_bytes))
 
 
-def check_device_capacity(n: int, n_streams: int = 1) -> None:
-    """Raise ``CapacityError`` if a single-device sort of n cannot fit.
+def check_device_capacity(n: int, operand_bytes: int = 4) -> None:
+    """Raise ``CapacityError`` if a single-device sort of n elements of
+    ``operand_bytes`` each cannot fit.
 
-    Called from the sort dispatch on accelerator backends. The analog of
-    the reference's transparent host-backed fallback — made explicit and
-    typed, with ``sort_large`` as the documented escape hatch.
+    Called from the sort dispatch. The analog of the reference's
+    transparent host-backed fallback — made explicit and typed, with
+    ``sort_large`` as the documented escape hatch.
     """
-    import jax
-
-    try:
-        stats = jax.devices()[0].memory_stats() or {}
-        limit = stats.get("bytes_limit")
-    except Exception:
-        return
-    if not limit:
-        return
-    padded = 1 << max((n - 1).bit_length(), 10)
-    need = padded * 4 * n_streams * 2
-    if need > int(limit * 0.90):
+    cap = device_capacity_keys(operand_bytes)
+    if cap is not None and n > cap:
         raise CapacityError(
-            f"sort of n={n} needs ~{need / 1e9:.1f} GB of device memory "
-            f"({n_streams} stream(s), padded to {padded}) but the device "
-            f"limit is {limit / 1e9:.1f} GB; use sortx.sort_large (host-"
-            f"staged chunked sort) for beyond-HBM inputs")
+            f"sort of n={n} ({operand_bytes} operand bytes per element) "
+            f"fits at most n={cap} on this device; use sortx.sort_large "
+            f"(host-staged chunked sort) for beyond-device-memory inputs")

@@ -2,40 +2,21 @@
 
 Beyond-reference capability (the reference is strictly 1D,
 ``Pprims.h:35-41``), but the natural batched form of the same
-contract, exposed because the TPU engine gets it almost for free: in a
-row-major [B, L] array with L a power of two, every bitonic exchange
-at distance < L stays inside a row, so sorting all rows independently
-ascending = the normal network with stages stopped at log2(L) and the
-final stage's direction forced ascending (``row_log`` mode in
-ops/bitonic.py). Rows that fit one VMEM block sort in a SINGLE
-kernel-A pass — measured 46 ms for 2^27 elements as 2048 x 2^16 rows
-(~2.9 GKeys/s, vs ~0.78 GKeys/s for XLA's batched lax.sort on the
-same chip).
+contract: one ``lax.sort`` along the last axis of a [B, L] array.
 
-Stability: ``sort_kv_rows`` carries a per-row-unique index stream in
-the comparator, so equal keys keep their original in-row order (same
-mechanism as the 1D stable KV path).
+Stability: ``sort_kv_rows`` sorts stably on the key, so equal keys keep
+their original in-row order.
 """
 
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
-from ..config import Config, default_config
+from ..config import Config
 from ..runtime.launcher import profiled
-from .bitonic import bitonic_sort_streams
-from .sort import _pick_engine, _to_radix_u32
+from .sort import _to_radix_u32
 
 __all__ = ["sort_rows", "sort_kv_rows"]
-
-_FF = 0xFFFFFFFF
-# Below this many total elements, XLA's batched sort wins on fixed costs.
-_FLOOR = 1 << 15
-
-# Dispatch witness, same honesty contract as sort_pallas.last_dispatch.
-last_dispatch: str | None = None
 
 
 def _check(keys):
@@ -46,42 +27,14 @@ def _check(keys):
     _check_key_dtype(keys.dtype, "sort_rows")
 
 
-def _use_engine(cfg: Config, total: int) -> bool:
-    if _pick_engine(cfg) != "pallas":
-        return False
-    if total < _FLOOR:
-        return False
-    if cfg.engine == "auto" and total < cfg.engine_min_n:
-        return False
-    return True
-
-
-def _pad_rows(k, L: int, cfg: Config):
-    """[B, L] u32 -> (flat padded stream, n_valid, Lp, row_log)."""
-    Lp = 1 << (L - 1).bit_length()
-    if Lp != L:
-        k = jnp.pad(k, ((0, 0), (0, Lp - L)),
-                    constant_values=np.uint32(_FF))
-    flat = k.reshape(-1)
-    n = k.shape[0] * Lp
-    granule = 1 << cfg.engine_log_block
-    tot = -(-n // granule) * granule
-    if tot != n:
-        flat = jnp.pad(flat, (0, tot - n), constant_values=np.uint32(_FF))
-    return flat, n, Lp, Lp.bit_length() - 1
-
-
 @profiled("sort_rows")
 def sort_rows(keys, *, descending: bool = False,
               config: Config | None = None):
     """Sort every row of a [B, L] array independently.
 
     Keys follow the same dtype contract as ``sortx.sort`` (u32/i32/f32,
-    monotone bit transforms). Row length and batch are unconstrained
-    (power-of-two padding per row is pruned by the engine's extent
-    tracking)."""
-    global last_dispatch
-    cfg = config or default_config()
+    monotone bit transforms). Row length and batch are unconstrained."""
+    del config
     _check(keys)
     B, L = keys.shape
     if B == 0 or L <= 1:
@@ -89,16 +42,7 @@ def sort_rows(keys, *, descending: bool = False,
     k, undo = _to_radix_u32(keys)
     if descending:
         k = ~k
-    if not _use_engine(cfg, B * L):
-        last_dispatch = "xla"
-        out = jax.lax.sort(k, dimension=1)
-        return undo(~out if descending else out)
-    last_dispatch = "bitonic-rows"
-    flat, n, Lp, row_log = _pad_rows(k, L, cfg)
-    out = bitonic_sort_streams(
-        (flat,), 1, interpret=cfg.interpret,
-        log_block=cfg.engine_log_block, n_valid=n, row_log=row_log)[0]
-    out = out[:n].reshape(B, Lp)[:, :L]
+    out = jax.lax.sort(k, dimension=1)
     return undo(~out if descending else out)
 
 
@@ -107,9 +51,8 @@ def sort_kv_rows(keys, values, *, descending: bool = False,
                  config: Config | None = None):
     """Stable per-row key-value sort of [B, L] arrays (values follow
     keys; equal keys keep their original in-row order). Values may be
-    any 4-byte dtype (other widths use the XLA path)."""
-    global last_dispatch
-    cfg = config or default_config()
+    any dtype."""
+    del config
     _check(keys)
     if values.shape != keys.shape:
         raise ValueError("keys and values must have the same shape")
@@ -119,26 +62,6 @@ def sort_kv_rows(keys, values, *, descending: bool = False,
     k, undo = _to_radix_u32(keys)
     if descending:
         k = ~k
-    if not _use_engine(cfg, B * L) or values.dtype.itemsize != 4:
-        last_dispatch = "xla"
-        ks, vs = jax.lax.sort([k, values], dimension=1, num_keys=1,
-                              is_stable=True)
-        return undo(~ks if descending else ks), vs
-    last_dispatch = "bitonic-rows"
-    vu = values.view(jnp.uint32) if values.dtype != jnp.uint32 else values
-    fk, n, Lp, row_log = _pad_rows(k, L, cfg)
-    # In-row position breaks key ties (stability); pads are FF in every
-    # stream, > any real position, so they stay behind real max-keys.
-    pos = jnp.broadcast_to(jnp.arange(Lp, dtype=jnp.uint32), (B, Lp))
-    fp, _, _, _ = _pad_rows(pos, Lp, cfg)
-    fv, _, _, _ = _pad_rows(
-        jnp.pad(vu, ((0, 0), (0, Lp - L)),
-                constant_values=np.uint32(_FF)) if Lp != L else vu,
-        Lp, cfg)
-    ks, _, vs = bitonic_sort_streams(
-        (fk, fp, fv), 2, interpret=cfg.interpret,
-        log_block=cfg.engine_log_block, n_valid=n, row_log=row_log)
-    ks = ks[:n].reshape(B, Lp)[:, :L]
-    ks = undo(~ks if descending else ks)
-    vs = vs[:n].reshape(B, Lp)[:, :L]
-    return ks, vs.view(values.dtype)
+    ks, vs = jax.lax.sort([k, values], dimension=1, num_keys=1,
+                          is_stable=True)
+    return undo(~ks if descending else ks), vs

@@ -7,16 +7,15 @@ sort library (CUB's ``DeviceSegmentedSort`` shape) and the ragged
 complement of ``sort_rows``: segments of ANY mixed lengths, given by an
 offsets vector, each sorted independently in ONE engine pass.
 
-TPU-first design: no per-segment dispatch, no padding to a rectangle.
+No per-segment dispatch, no padding to a rectangle.
 Each element's segment id (a cheap ``searchsorted`` against the offsets)
 becomes the HIGH word of a 64-bit composite key and the radix-u32 key
-the LOW word; one (hi, lo) lexicographic network sort
-(``ops/extras.sort_u64``) then sorts every segment in place — segments
-never interleave because ids differ, and within a segment the order is
-exactly ``sortx.sort``'s. Cost is one 2-stream network pass over n
-(measured 473 MKeys/s at 2^27 on v5e), independent of the segment-count
-or the length skew — a 1-element segment next to a 100M one costs the
-same as balanced halves.
+the LOW word; one (hi, lo) lexicographic sort (``ops/extras.sort_u64``)
+then sorts every segment in place — segments never interleave because
+ids differ, and within a segment the order is exactly ``sortx.sort``'s.
+Cost is independent of the segment count or the length skew — a
+1-element segment next to a 100M one costs the same as balanced
+halves.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ segmented-sum operator over (start-flag, value) pairs —
 associative, so XLA's log-step scan applies; cost is independent of the
 segment count or length skew (one 1-element segment next to a 100M one
 costs the same as balanced halves). Per-segment totals reuse the
-flat Pallas ``sortx.scan`` (a global exclusive sum sampled at the
+flat ``sortx.scan`` (a global exclusive sum sampled at the
 offsets), not a second segmented pass. Arithmetic wraps mod 2^32,
 bit-identical to the flat scan's u32 semantics.
 """
@@ -78,7 +78,7 @@ def scan_segments(x, offsets, *, with_totals: bool = False,
 
     if not with_totals:
         return out
-    # Totals = global exclusive scan (the flat Pallas kernel) sampled at
+    # Totals = global exclusive scan (the flat sortx.scan) sampled at
     # the boundaries: sum(seg i) = g[offsets[i+1]] - g[offsets[i]].
     g, gt = scan(xu, with_total=True, config=cfg)
     g_ext = jnp.concatenate([g, gt[None]])

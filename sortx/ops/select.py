@@ -4,14 +4,11 @@
 Beyond-reference capability, but the natural payoff of the components
 the reference pioneered: its count/scan machinery
 (``StreamCountKernel`` + ``PrefixScan*``, ``RadixSort32Kernels.cl``)
-is exactly a radix SELECTION engine if the scatter pass is dropped —
-and dropping the scatter is precisely what the TPU wants
-(docs/DESIGN_NOTES.md: movement is the expensive part on this ISA).
+is exactly a radix SELECTION engine if the scatter pass is dropped.
 
 ``kth_value``: 4 rounds of (8-bit histogram -> pick the bucket holding
 rank k), narrowing one byte per round — O(n) work, 4 streaming passes,
-no data movement at all. On v5e this is ~4x faster than sorting and
-needs no extra HBM.
+no data movement at all.
 
 ``top_k``: two-phase tournament on the batched row-sort engine — rows
 of L sort independently (one kernel-A pass), each contributes its top

@@ -1,6 +1,6 @@
 """Public sort API: keys-only and key-value stable LSD radix sort.
 
-TPU-native replacement for ``Pprims::radixSort`` (both overloads,
+Replacement for ``Pprims::radixSort`` (both overloads,
 ``Tahoe/ParallelPrimitives/Pprims.h:37-41``, ``Pprims.cpp:200-406``).
 
 Contract differences from the reference (all strict improvements):
@@ -11,8 +11,8 @@ Contract differences from the reference (all strict improvements):
     (``RadixSortKeyValueKernels.cl:552-563``);
   - any ``sort_bits`` in 1..32 (the reference requires a multiple of 4,
     ``Pprims.cpp:330``);
-  - engine selection is a runtime Config, not a compile-time device gate
-    (``Pprims.cpp:189-198`` enableSortOnDevice analog).
+  - the sort itself is XLA's ``lax.sort`` (``ops/sort_xla.py``), which
+    the GPU backend hands to a library radix sort where it can.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 
 from ..config import Config, default_config
 from ..runtime.launcher import profiled
+from .out_of_core import check_device_capacity
 from .sort_xla import sort_kv_xla, sort_xla
 
 __all__ = ["sort", "sort_kv"]
@@ -40,9 +41,7 @@ _WIDEN = {
 
 
 # 64-bit key dtypes (require jax x64 mode to exist as array dtypes).
-# They sort as (hi, lo) u32 word pairs through the single-pass
-# lexicographic engine path (ops/extras.py sort_u64) — never two LSD
-# word passes on TPU.
+# They sort as (hi, lo) u32 word pairs (ops/extras.py sort_u64).
 _DTYPES64 = (jnp.dtype(np.uint64), jnp.dtype(np.int64),
              jnp.dtype(np.float64))
 
@@ -118,11 +117,7 @@ def _to_radix_u64(keys):
     if dt == jnp.dtype(np.float64):
         # Bitcast straight to u32 word pairs (minor dim = words, least
         # significant first — XLA bitcast-convert semantics, pinned by
-        # test_sort_64bit_roundtrip_extremes on every backend). The
-        # f64->u64 form is NOT used because this TPU stack's x64-type
-        # rewriting pass lacks it ("While rewriting computation to not
-        # contain X64 element types ... not implemented:
-        # bitcast-convert" — fails at compile).
+        # test_sort_64bit_roundtrip_extremes on every backend).
         w = jax.lax.bitcast_convert_type(keys, jnp.uint32)
         lo, hi = w[..., 0], w[..., 1]
     else:
@@ -180,12 +175,6 @@ def _resolve_sort_bits(keys, sort_bits, what: str = "sort"):
     return sort_bits
 
 
-def _pick_engine(cfg: Config) -> str:
-    if cfg.engine != "auto":
-        return cfg.engine
-    return "pallas" if jax.default_backend() == "tpu" else "host"
-
-
 def _order_mask(sort_bits: int):
     """All-ones over the participating key bits (for descending flips)."""
     return jnp.uint32(0xFFFFFFFF if sort_bits >= 32
@@ -202,13 +191,13 @@ def sort(keys, sort_bits: int | None = None, *, descending: bool = False,
     contract: int32 keys sort in natural signed order and float32 keys in
     float order (monotone bit transforms; NaNs order by sign at the
     extremes). 16-bit keys widen exactly; 64-bit keys (u64/i64/f64,
-    requires jax x64 mode) run ONE engine pass with a lexicographic
-    (hi, lo) word comparator. ``sort_bits=None`` means the full key
-    width; partial widths need uint32 keys.
+    requires jax x64 mode) sort as (hi, lo) u32 word pairs.
+    ``sort_bits=None`` means the full key width; partial widths need
+    uint32 keys.
 
     ``descending=True`` reverses the order (stable: equal keys keep
     their original relative order) at the cost of two elementwise
-    passes — the engines run ascending on the complemented radix key,
+    passes — the sort runs ascending on the complemented radix key,
     so a reverse-sorted input still hits the presorted fast path.
     """
     cfg = config or default_config()
@@ -221,6 +210,7 @@ def sort(keys, sort_bits: int | None = None, *, descending: bool = False,
     if sort_bits == 64:
         from .extras import sort_u64
 
+        check_device_capacity(n, 12)
         hi, lo, undo64 = _to_radix_u64(keys)
         h2, l2 = sort_u64(hi, lo, descending=descending, config=cfg)
         return undo64(h2, l2)
@@ -229,16 +219,8 @@ def sort(keys, sort_bits: int | None = None, *, descending: bool = False,
     if descending:
         k = k ^ _order_mask(sort_bits)
 
-    engine = _pick_engine(cfg)
-    if engine == "host":
-        out = sort_xla(k, sort_bits)
-    else:
-        from .out_of_core import check_device_capacity
-        from .sort_pallas import packed_partial, sort_pallas
-        check_device_capacity(
-            n, 1 if sort_bits >= 32
-            else (2 if packed_partial(n, sort_bits) else 3))
-        out = sort_pallas(k, sort_bits, cfg)
+    check_device_capacity(n, 4 if sort_bits >= 32 else 8)
+    out = sort_xla(k, sort_bits)
     if descending:
         out = out ^ _order_mask(sort_bits)
     return undo(out)
@@ -252,11 +234,10 @@ def sort_kv(keys, values, sort_bits: int | None = None, *,
 
     Analog of ``Pprims::radixSort(Buffer<uint2>&, n)``
     (``Pprims.cpp:200-302``). Values may be any 32-bit dtype; keys may
-    also be 64-bit (u64/i64/f64, x64 mode — one engine pass, see
-    ``sort``). ``stable=False`` permits unspecified ordering of values
-    under equal keys (beyond-reference: lets the TPU engine drop its
-    tie-break stream, ~1.5x faster; backends that are naturally stable
-    may ignore the hint — a stable result is a valid unstable result).
+    also be 64-bit (u64/i64/f64, x64 mode, see ``sort``).
+    ``stable=False`` permits unspecified ordering of values under equal
+    keys (beyond-reference; XLA's sort is stable either way, and a
+    stable result is a valid unstable result).
     """
     cfg = config or default_config()
     _check_keys(keys, allow64=True)
@@ -270,6 +251,9 @@ def sort_kv(keys, values, sort_bits: int | None = None, *,
     if sort_bits == 64:
         from .extras import sort_kv_u64
 
+        # The keys-only 64-bit count of 12 operand bytes, plus the
+        # payload that rides both passes.
+        check_device_capacity(n, 12 + values.dtype.itemsize)
         hi, lo, undo64 = _to_radix_u64(keys)
         h2, l2, v2 = sort_kv_u64(hi, lo, values, stable=stable,
                                  descending=descending, config=cfg)
@@ -279,22 +263,9 @@ def sort_kv(keys, values, sort_bits: int | None = None, *,
     if descending:
         k = k ^ _order_mask(sort_bits)
 
-    engine = _pick_engine(cfg)
-    if engine == "host":
-        ks, vs = sort_kv_xla(k, values, sort_bits)
-    else:
-        from .out_of_core import check_device_capacity
-        from .sort_pallas import packed_partial, sort_kv_pallas
-        if stable and sort_bits < 32:
-            n_streams = 3 if packed_partial(n, sort_bits) else 4
-        elif stable:
-            n_streams = 3
-        else:
-            n_streams = 2
-        if values.dtype.itemsize == 8:
-            n_streams += 1           # 64-bit values ride as two words
-        check_device_capacity(n, n_streams)
-        ks, vs = sort_kv_pallas(k, values, sort_bits, cfg, stable=stable)
+    check_device_capacity(
+        n, (4 if sort_bits >= 32 else 8) + values.dtype.itemsize)
+    ks, vs = sort_kv_xla(k, values, sort_bits)
     if descending:
         ks = ks ^ _order_mask(sort_bits)
     return undo(ks), vs

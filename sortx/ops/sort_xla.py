@@ -1,10 +1,9 @@
-"""Portable XLA sort engine (fallback path).
+"""The sort: XLA's ``lax.sort`` on any JAX backend.
 
-Plays the role of the reference's CPU fallback inside ``Pprims::radixSort``
-(``Pprims.cpp:306-316``: when no GPU device, sort on the host): a correct,
-engine on any JAX backend, used when Pallas is unavailable (CPU tests) or
-explicitly requested. Built on ``lax.sort`` (stable), with the reference's
-exact ordering contracts:
+On the GPU, XLA hands a sort of one key with at most one payload to
+CUB's radix sort; sorts with more operands run XLA's own comparison
+sort. Built on ``lax.sort`` (stable), with the reference's exact
+ordering contracts:
 
   - keys-only with partial ``sort_bits``: order by the low bits only,
     stable w.r.t. input order (``Pprims.cpp:253,357``);

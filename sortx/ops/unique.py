@@ -3,15 +3,12 @@
 Beyond-reference convenience (the reference has no set operations), with
 ``jnp.unique``-style static ``size`` semantics so it is jittable.
 
-TPU-first design: this ISA has no scattered stores, so the classic
-"flag firsts -> scan -> scatter-compact" shape cannot run. Instead the
-compaction IS a sort: a stable 1-bit key-value sort on the
+In place of the classic "flag firsts -> scan -> scatter-compact"
+shape, the compaction IS a sort: a stable 1-bit key-value sort on the
 duplicate flag (0 = first occurrence, 1 = duplicate) moves every first
-occurrence to the front in order — exactly the engine's cheapest
-configuration — carrying the element POSITIONS as values. The first
-``size`` positions then drive O(size) gathers for values and counts
-(size is the user's bound, typically << n, so the gathers are cheap
-even though this ISA gathers slowly).
+occurrence to the front in order, carrying the element POSITIONS as
+values. The first ``size`` positions then drive O(size) gathers for
+values and counts (size is the user's bound, typically << n).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 New-scope companion of ``sortx.scan`` (the reference's ``Pprims::scan``
 is single-device and caps at n < 2^20, ``Pprims.cpp:134-138``): the
 classic two-level decomposition, but across chips — each shard runs the
-single-chip scan engine (the Pallas kernel on TPU) on its local block,
-shard totals are all-gathered (one [D] vector on ICI), and every shard
+single-chip ``sortx.scan`` on its local block, shard totals are
+all-gathered (one [D] vector), and every shard
 adds the sum of the lower-ranked totals. One collective of D scalars
 total; everything else is local, so scaling is embarrassing by
 construction.
@@ -47,7 +47,7 @@ def _shard_scan(xs, *, axis_name: str, inclusive: bool, cfg: Config):
 @functools.lru_cache(maxsize=128)
 def _jitted_dist_scan(mesh: Mesh, inclusive: bool, cfg: Config):
     """Cached jitted shard_map (same rationale as dist_sort._jitted_*:
-    a fresh jit per call re-traces the Pallas scan every time)."""
+    a fresh jit per call re-traces the scan every time)."""
     body = functools.partial(_shard_scan, axis_name=AXIS,
                              inclusive=inclusive, cfg=cfg)
     mapped = jax.shard_map(body, mesh=mesh, in_specs=(P(AXIS),),

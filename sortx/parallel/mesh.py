@@ -2,7 +2,7 @@
 
 No counterpart in the reference (single-device library; SURVEY §2.6 #5,
 §5 "Distributed communication backend: absent") — this is the new-scope
-ICI/DCN layer: a 1D mesh over all chips with even 1D sharding of the key
+communication layer: a 1D mesh over all chips with even 1D sharding of the key
 axis.
 """
 

@@ -1,11 +1,10 @@
 """Multi-host initialization and mesh construction.
 
 New scope (the reference is single-device): helpers to run the
-distributed sort across hosts. On a real pod slice, call
-``init_multihost()`` once per process before building meshes; the
-resulting global mesh spans all hosts' devices and ``dist_sort`` works
-unchanged (shard_map + collectives ride ICI within a slice and DCN
-across slices).
+distributed sort across hosts. Call ``init_multihost()`` once per
+process before building meshes; the resulting global mesh spans all
+hosts' devices and ``dist_sort`` works unchanged (shard_map +
+collectives).
 
 For CI / single-machine development, ``simulate_hosts`` documents the
 supported recipe: N virtual CPU devices via
@@ -32,8 +31,7 @@ def init_multihost(coordinator_address: Optional[str] = None,
     """Initialize JAX distributed (one call per host process).
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS
-    etc. / TPU pod auto-detection): on Cloud TPU pods a bare
-    ``init_multihost()`` suffices.
+    etc.) where the cluster sets them; elsewhere pass all three.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -1,9 +1,9 @@
 """CPU golden reference implementations (the correctness oracle).
 
-TPU-native re-imagination of the reference's serial CPU sort
+Re-imagination of the reference's serial CPU sort
 (``Tahoe/Algorithm/Sort/RadixSort.cpp:10-104``) and the inline running-sum scan
 oracle used by its unit tests (``UnitTest/main.cpp:193-199``). These are the
-trusted implementations every TPU kernel is validated against, bit-exactly.
+trusted implementations every device path is validated against, bit-exactly.
 
 Contracts mirrored from the reference:
   - LSD radix sort, 8 bits per pass, 256 counting tables

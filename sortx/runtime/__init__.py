@@ -3,7 +3,7 @@
 from . import native
 from . import profiler
 from .buffer import Buffer, SyncObject
-from .cache import enable_cache, warmup
+from .cache import cache_dir, enable_cache, warmup
 from .device import DeviceConfig, SortxDevice, allocate_device, device_count
 from .launcher import (Launcher, capture_next_op, profiling_enabled,
                        profiling_level, replay, replay_op,
@@ -28,6 +28,7 @@ __all__ = [
     "MirroredArray",
     "MirrorState",
     "Stopwatch",
+    "cache_dir",
     "enable_cache",
     "warmup",
     "profiler",

@@ -1,6 +1,6 @@
 """Typed device buffers with accounting.
 
-TPU-native analog of ``adl::Buffer<T>`` / ``HostBuffer<T>`` / ``BufferUtils``
+Analog of ``adl::Buffer<T>`` / ``HostBuffer<T>`` / ``BufferUtils``
 (``Adl/Adl.h:161-274``, ``Adl/Adl.inl:201-557``): allocate, read/write
 (host<->device and device<->device), fill/clear, grow, and map semantics —
 implemented over ``jax.Array`` + ``device_put``. Async read/write returns the
@@ -153,7 +153,7 @@ class Buffer:
         NOT zero-copy: the reference's ``getHostPtr`` maps the device
         allocation in place (``clEnqueueMapBuffer``,
         ``Adl/CL/AdlCL.inl:544-555``); ``jax.Array`` is immutable and
-        device memory is not host-addressable on TPU, so this is a
+        device memory is not host-addressable, so this is a
         device->host COPY and ``return_host_ptr`` is the host->device
         copy back. The map/modify/unmap call pattern round-trips
         identically; the cost model differs (2x PCIe traffic vs 0)."""

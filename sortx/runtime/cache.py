@@ -1,12 +1,16 @@
 """Compilation cache management + warmup.
 
-TPU-native analog of the reference's on-disk kernel binary cache
+Analog of the reference's on-disk kernel binary cache
 (``KernelBuilder<TYPE_CL>``: cache keyed by source hash + device + driver,
 ``Adl/CL/AdlKernelUtilsCL.inl:176-337``). JAX/XLA ships a persistent
 compilation cache with the same keying discipline (HLO hash + compiler
 version + device); this module turns it on, points it at a directory
 (``adl::s_cacheDirectory`` analog, ``Adl/Adl.h:19-20``), and provides a
 warmup that pre-compiles the sort/scan kernels for a set of sizes.
+
+Every entry point (``bench.py``, ``chip_smoke.py``, the test suite and
+the benchmark scripts) calls ``enable_cache()``, so they share one rule:
+``$JAX_COMPILATION_CACHE_DIR`` when it is set, else ``<repo>/.jax_cache``.
 """
 
 from __future__ import annotations
@@ -18,18 +22,29 @@ import jax.numpy as jnp
 
 from ..utils.log import Channel, log
 
-__all__ = ["enable_cache", "warmup"]
+__all__ = ["cache_dir", "enable_cache", "warmup"]
 
-_DEFAULT_DIR = os.environ.get("SORTX_CACHE_DIR", os.path.join(
-    os.path.expanduser("~"), ".cache", "sortx_xla"))
+_REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 
-def enable_cache(directory: str | None = None) -> str:
-    """Enable the persistent XLA compilation cache (binary-cache analog)."""
-    directory = directory or _DEFAULT_DIR
+def cache_dir(environ=os.environ) -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` if set, else ``<repo>/.jax_cache``."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _REPO, ".jax_cache")
+
+
+def enable_cache(directory: str | None = None,
+                 min_compile_secs: float = 0.0) -> str:
+    """Enable the persistent XLA compilation cache (binary-cache analog).
+
+    Goes through ``jax.config`` as well as the directory rule, because a
+    process that imported jax before setting the variable has already
+    read it. ``min_compile_secs=0`` persists every executable."""
+    directory = os.path.abspath(directory or cache_dir())
     os.makedirs(directory, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", directory)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                      min_compile_secs)
     log(f"compilation cache at {directory}", Channel.DEVICE)
     return directory
 

@@ -1,11 +1,11 @@
 """Device discovery, selection and sync.
 
-TPU-native analog of ``DeviceUtils`` / ``Device``
+Analog of ``DeviceUtils`` / ``Device``
 (``Adl/Adl.h:71-155``, ``Adl/Adl.inl:38-105``): enumerate devices, pick one
 by type/index, query compute-unit count and memory, synchronize, and track
 live buffer bytes with a leak check on teardown (``Adl/Adl.inl:102``).
 
-On TPU, JAX's runtime already owns contexts/queues, so this layer is thin —
+JAX's runtime already owns contexts/queues, so this layer is thin —
 its value is the uniform introspection + accounting surface the algorithm
 layer and tests program against.
 """
@@ -26,7 +26,7 @@ __all__ = ["DeviceConfig", "SortxDevice", "allocate_device", "device_count"]
 class DeviceConfig:
     """Analog of DeviceUtils::Config (Adl/Adl.h:74-96)."""
 
-    platform: str = "auto"  # "tpu" | "cpu" | "auto"  (TYPE_CL/TYPE_HOST analog)
+    platform: str = "auto"  # "gpu" | "cpu" | "auto"  (TYPE_CL/TYPE_HOST analog)
     device_idx: int = 0
 
 
@@ -42,7 +42,8 @@ class SortxDevice:
     # ---- introspection (Adl/Adl.inl:38-71, AdlCL.inl:704-760) ----
     @property
     def n_cores(self) -> int:
-        """Compute-unit count (getNCUs analog). TPU: cores per chip."""
+        """Compute-unit count (getNCUs analog) where the device reports
+        one, else 1."""
         return getattr(self.jax_device, "num_cores", None) or 1
 
     @property
@@ -104,8 +105,9 @@ def device_count(platform: str = "auto") -> int:
 def allocate_device(config: DeviceConfig | None = None) -> SortxDevice:
     """Analog of DeviceUtils::allocate (Adl/Adl.inl:73-98).
 
-    Picks the requested platform/device index, preferring TPU when "auto"
-    (the reference prefers GPU vendors in priority order, AdlCL.inl:178-225).
+    Picks the requested platform/device index; "auto" takes JAX's
+    default backend (the reference prefers GPU vendors in priority
+    order, AdlCL.inl:178-225).
     """
     config = config or DeviceConfig()
     platform = config.platform

@@ -1,6 +1,6 @@
 """Host/device mirrored array with dirty-state coherence.
 
-TPU-native analog of ``uArray<T>``
+Analog of ``uArray<T>``
 (``Tahoe/ParallelPrimitives/uArray.h:13-228``): a numpy-backed host array
 mirrored by a lazily-allocated device array, with a coherence state machine
 (CLEAN / CPU_DIRTY / GPU_DIRTY / UNINITIALIZED) that syncs on access —

@@ -3,7 +3,8 @@
 The host-backend analog of the reference's CPU path (``DeviceHost`` +
 ``RadixSort.cpp``): a fast native oracle for large-n verification, and the
 engine behind ``reference`` when available. Falls back to the numpy oracle
-if the shared library hasn't been built (``make -C csrc``).
+if the shared library hasn't been built (``make -C csrc``, which writes
+``build/libsortx_host.so``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import numpy as np
 __all__ = ["available", "host_sort", "host_sort_kv", "host_scan",
            "host_merge", "build_native"]
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "csrc",
-                         "libsortx_host.so")
+_REPO = os.path.join(os.path.dirname(__file__), "..", "..")
+_CSRC = os.path.join(_REPO, "csrc")
+_LIB_PATH = os.path.join(_REPO, "build", "libsortx_host.so")
 _lib = None
 
 
@@ -49,12 +51,16 @@ def _load():
     return lib
 
 
-def build_native() -> bool:
-    """Build the shared library (KernelBuilder compile-step analog)."""
-    csrc = os.path.dirname(_LIB_PATH)
+def build_native(force: bool = False) -> bool:
+    """Build the shared library (KernelBuilder compile-step analog).
+
+    ``force`` rebuilds even if make's timestamps call the library up to
+    date (a copied tree carries the copier's timestamps)."""
+    global _lib
     try:
-        subprocess.run(["make", "-C", csrc], check=True,
-                       capture_output=True)
+        subprocess.run(["make", "-C", _CSRC] + (["-B"] if force else []),
+                       check=True, capture_output=True)
+        _lib = None
         return _load() is not None
     except (subprocess.CalledProcessError, FileNotFoundError):
         return False

@@ -2,9 +2,9 @@
 
 Analog of the reference's ``Stopwatch`` family (``Adl/AdlStopwatch.h:60-83``,
 host impl ``Adl/Host/AdlStopwatchHost.inl:31-83``, CL impl = device-sync +
-host clock ``Adl/CL/AdlStopwatchCL.inl:49-53``). On TPU the accurate variant
-is the same recipe as the CL one: ``block_until_ready`` on the result, then
-a host monotonic clock split.
+host clock ``Adl/CL/AdlStopwatchCL.inl:49-53``). The accurate variant is
+the same recipe as the CL one: ``block_until_ready`` on the result, then a
+host monotonic clock split.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ unit-test builds it maps to gtest ``EXPECT_TRUE`` — i.e. library-internal
 invariants surface through the test framework. Here: ``sortx_assert``
 raises in debug mode (``SORTX_DEBUG=1`` or ``set_debug(True)``) and is
 free otherwise; ``debug_validate`` optionally cross-checks engine outputs
-against the golden oracle (the TPU analog of the reference's debug-mode
+against the golden oracle (the analog of the reference's debug-mode
 forced syncs that localize failures, ``AdlKernelUtilsCL.inl:660-662``).
 """
 

@@ -1,6 +1,6 @@
 """Channel-filtered file logger.
 
-TPU-native analog of the reference's ``LogWriter`` singleton
+Analog of the reference's ``LogWriter`` singleton
 (``Tahoe/Base/Config.inl:25-114``): a process-wide logger writing to
 ``sortx.log`` with a bitmask of channels (Base/Error/Debug/Io/Device/...)
 and compile-time-style level filtering via ``SORTX_LOG_LEVEL``.

@@ -1,6 +1,6 @@
 """Scalar math helpers.
 
-TPU-native analog of the reference's host math helpers
+Analog of the reference's host math helpers
 (``Tahoe/Math/Math.h:230-256,324-330``: ``nextPowerOf2``, ``NEXTMULTIPLEOF``,
 ``min2/max2/clamp``). The vector PODs (uint2/float4/...) have no analog —
 jnp arrays subsume them.

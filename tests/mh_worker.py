@@ -2,7 +2,7 @@
 
 Each process owns 2 CPU devices; jax.distributed connects them via gloo
 into one 4-device mesh spanning both processes — the same code path a
-TPU pod uses (one process per host), minus ICI. Run:
+multi-host cluster uses (one process per host). Run:
     python tests/mh_worker.py <process_id> <port>
 """
 import sys

@@ -3,8 +3,8 @@
 Beyond-reference capability (the reference sorts ascending only,
 ``Pprims.cpp:304-406``): every sort entry point takes ``descending=``,
 implemented as a complement of the radix-u32 key around the ascending
-engines — so it must be stable (equal keys keep original order) and
-bit-exact on every engine, including the interpret-mode Pallas network.
+sort — so it must be stable (equal keys keep original order) and
+bit-exact.
 """
 
 import jax.numpy as jnp
@@ -12,31 +12,24 @@ import numpy as np
 import pytest
 
 import sortx
-from tests.conftest import engine_cfgs as _engine_cfgs
 
 N = 20_000
 
 
 def test_sort_descending_u32(rng):
-    # engine-parity test 1 of 2 for this file (full sweep on TPU)
     keys = rng.randint(0, 2**32, size=N, dtype=np.uint32)
     exp = np.sort(keys)[::-1]
-    for cfg in _engine_cfgs(full=True):
-        got = np.asarray(sortx.sort(jnp.asarray(keys), descending=True,
-                                    config=cfg))
-        assert np.array_equal(got, exp), cfg.engine
+    got = np.asarray(sortx.sort(jnp.asarray(keys), descending=True))
+    assert np.array_equal(got, exp)
 
 
 def test_sort_descending_i32_f32(rng):
     i = rng.randint(-2**31, 2**31, size=N).astype(np.int32)
     f = rng.randn(N).astype(np.float32)
-    for cfg in _engine_cfgs():
-        gi = np.asarray(sortx.sort(jnp.asarray(i), descending=True,
-                                   config=cfg))
-        assert np.array_equal(gi, np.sort(i)[::-1]), cfg.engine
-        gf = np.asarray(sortx.sort(jnp.asarray(f), descending=True,
-                                   config=cfg))
-        assert np.array_equal(gf, np.sort(f)[::-1]), cfg.engine
+    gi = np.asarray(sortx.sort(jnp.asarray(i), descending=True))
+    assert np.array_equal(gi, np.sort(i)[::-1])
+    gf = np.asarray(sortx.sort(jnp.asarray(f), descending=True))
+    assert np.array_equal(gf, np.sort(f)[::-1])
 
 
 def test_sort_descending_partial_bits(rng):
@@ -45,67 +38,55 @@ def test_sort_descending_partial_bits(rng):
     mask = np.uint32(0xFF)
     order = np.argsort((keys & mask) ^ mask, kind="stable")
     exp = keys[order]
-    for cfg in _engine_cfgs():
-        got = np.asarray(sortx.sort(jnp.asarray(keys), 8, descending=True,
-                                    config=cfg))
-        assert np.array_equal(got, exp), cfg.engine
+    got = np.asarray(sortx.sort(jnp.asarray(keys), 8, descending=True))
+    assert np.array_equal(got, exp)
 
 
 def test_sort_descending_ragged_and_presorted(rng):
     for n in (1, 13, 255, 1000, 8193):
         keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
         exp = np.sort(keys)[::-1]
-        for cfg in _engine_cfgs():
-            got = np.asarray(sortx.sort(jnp.asarray(keys), descending=True,
-                                        config=cfg))
-            assert np.array_equal(got, exp), (cfg.engine, n)
+        got = np.asarray(sortx.sort(jnp.asarray(keys), descending=True))
+        assert np.array_equal(got, exp), n
     # A reverse-sorted (= already descending) input must be an identity.
     pre = np.sort(rng.randint(0, 2**32, size=N, dtype=np.uint32))[::-1]
-    for cfg in _engine_cfgs():
-        got = np.asarray(sortx.sort(jnp.asarray(pre.copy()),
-                                    descending=True, config=cfg))
-        assert np.array_equal(got, pre), cfg.engine
+    got = np.asarray(sortx.sort(jnp.asarray(pre.copy()),
+                                descending=True))
+    assert np.array_equal(got, pre)
 
 
 def test_sort_kv_descending_stable(rng):
-    # engine-parity test 2 of 2 for this file (full sweep on TPU)
     keys = rng.randint(0, 16, size=N).astype(np.uint32)   # heavy ties
     vals = np.arange(N, dtype=np.uint32)
     order = np.argsort(~keys, kind="stable")
-    for cfg in _engine_cfgs(full=True):
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               descending=True, config=cfg)
-        assert np.array_equal(np.asarray(ks), keys[order]), cfg.engine
-        assert np.array_equal(np.asarray(vs), vals[order]), cfg.engine
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
+                           descending=True)
+    assert np.array_equal(np.asarray(ks), keys[order])
+    assert np.array_equal(np.asarray(vs), vals[order])
 
 
 def test_sort_kv_descending_unstable_valid(rng):
     """stable=False: keys descending; (key, value) multiset preserved."""
     keys = rng.randint(0, 1024, size=1 << 14).astype(np.uint32)
     vals = rng.randint(0, 2**32, size=1 << 14, dtype=np.uint32)
-    for cfg in _engine_cfgs():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               stable=False, descending=True, config=cfg)
-        ks, vs = np.asarray(ks), np.asarray(vs)
-        assert np.array_equal(ks, np.sort(keys)[::-1]), cfg.engine
-        got = np.stack([ks, vs], 1)
-        exp = np.stack([keys, vals], 1)
-        assert np.array_equal(
-            got[np.lexsort((vs, ks))], exp[np.lexsort((vals, keys))]
-        ), cfg.engine
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
+                           stable=False, descending=True)
+    ks, vs = np.asarray(ks), np.asarray(vs)
+    assert np.array_equal(ks, np.sort(keys)[::-1])
+    got = np.stack([ks, vs], 1)
+    exp = np.stack([keys, vals], 1)
+    assert np.array_equal(
+        got[np.lexsort((vs, ks))], exp[np.lexsort((vals, keys))]
+    )
 
 
 def test_argsort_descending(rng):
     keys = rng.randint(0, 64, size=N).astype(np.uint32)
     f = rng.randn(N).astype(np.float32)
-    for cfg in _engine_cfgs():
-        p = np.asarray(sortx.argsort(jnp.asarray(keys), descending=True,
-                                     config=cfg))
-        assert np.array_equal(p, np.argsort(~keys, kind="stable")), \
-            cfg.engine
-        pf = np.asarray(sortx.argsort(jnp.asarray(f), descending=True,
-                                      config=cfg))
-        assert np.array_equal(pf, np.argsort(-f, kind="stable")), cfg.engine
+    p = np.asarray(sortx.argsort(jnp.asarray(keys), descending=True))
+    assert np.array_equal(p, np.argsort(~keys, kind="stable"))
+    pf = np.asarray(sortx.argsort(jnp.asarray(f), descending=True))
+    assert np.array_equal(pf, np.argsort(-f, kind="stable"))
 
 
 def test_sort_u64_descending(rng):
@@ -113,11 +94,10 @@ def test_sort_u64_descending(rng):
     lo = rng.randint(0, 2**32, size=N, dtype=np.uint32)
     full = (hi.astype(np.uint64) << 32) | lo
     exp = np.sort(full)[::-1]
-    for cfg in _engine_cfgs():
-        shi, slo = sortx.sort_u64(jnp.asarray(hi), jnp.asarray(lo),
-                                  descending=True, config=cfg)
-        got = (np.asarray(shi).astype(np.uint64) << 32) | np.asarray(slo)
-        assert np.array_equal(got, exp), cfg.engine
+    shi, slo = sortx.sort_u64(jnp.asarray(hi), jnp.asarray(lo),
+                              descending=True)
+    got = (np.asarray(shi).astype(np.uint64) << 32) | np.asarray(slo)
+    assert np.array_equal(got, exp)
 
 
 def test_sort_kv_u64_descending_stable(rng):
@@ -126,23 +106,21 @@ def test_sort_kv_u64_descending_stable(rng):
     vals = np.arange(N, dtype=np.uint32)
     full = (hi.astype(np.uint64) << 32) | lo
     order = np.argsort(np.invert(full), kind="stable")
-    for cfg in _engine_cfgs():
-        shi, slo, sv = sortx.sort_kv_u64(
-            jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals),
-            descending=True, config=cfg)
-        got = (np.asarray(shi).astype(np.uint64) << 32) | np.asarray(slo)
-        assert np.array_equal(got, full[order]), cfg.engine
-        assert np.array_equal(np.asarray(sv), vals[order]), cfg.engine
+    shi, slo, sv = sortx.sort_kv_u64(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals),
+        descending=True)
+    got = (np.asarray(shi).astype(np.uint64) << 32) | np.asarray(slo)
+    assert np.array_equal(got, full[order])
+    assert np.array_equal(np.asarray(sv), vals[order])
 
 
 @pytest.mark.parametrize("shape", [(32, 640), (7, 1000)])
 def test_sort_rows_descending(rng, shape):
     keys = rng.randint(0, 2**32, size=shape, dtype=np.uint32)
     exp = np.sort(keys, axis=1)[:, ::-1]
-    for cfg in _engine_cfgs():
-        got = np.asarray(sortx.sort_rows(jnp.asarray(keys),
-                                         descending=True, config=cfg))
-        assert np.array_equal(got, exp), cfg.engine
+    got = np.asarray(sortx.sort_rows(jnp.asarray(keys),
+                                     descending=True))
+    assert np.array_equal(got, exp)
 
 
 def test_sort_kv_rows_descending_stable(rng):
@@ -150,13 +128,12 @@ def test_sort_kv_rows_descending_stable(rng):
     keys = rng.randint(0, 8, size=(B, L)).astype(np.uint32)
     vals = np.tile(np.arange(L, dtype=np.uint32), (B, 1))
     order = np.argsort(~keys, axis=1, kind="stable")
-    for cfg in _engine_cfgs():
-        ks, vs = sortx.sort_kv_rows(jnp.asarray(keys), jnp.asarray(vals),
-                                    descending=True, config=cfg)
-        assert np.array_equal(np.asarray(ks),
-                              np.take_along_axis(keys, order, 1)), cfg.engine
-        assert np.array_equal(np.asarray(vs),
-                              np.take_along_axis(vals, order, 1)), cfg.engine
+    ks, vs = sortx.sort_kv_rows(jnp.asarray(keys), jnp.asarray(vals),
+                                descending=True)
+    assert np.array_equal(np.asarray(ks),
+                          np.take_along_axis(keys, order, 1))
+    assert np.array_equal(np.asarray(vs),
+                          np.take_along_axis(vals, order, 1))
 
 
 def test_dist_sort_descending(rng):

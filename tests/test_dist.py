@@ -1,10 +1,11 @@
 """Distributed sort tests on a multi-device mesh.
 
 Runs on the 8-virtual-device CPU mesh by default (conftest sets
-``--xla_force_host_platform_device_count=8``), or on real devices with
-SORTX_TEST_TPU=1. Verifies bit-exact agreement with the golden oracle —
-including ordering of equal keys across shard boundaries (stability through
-the shuffle, SURVEY §7 "bit-exactness across meshes").
+``--xla_force_host_platform_device_count=8``); the ``gpu``-marked cases
+run on the cards of a multi-GPU machine. Verifies bit-exact agreement
+with the golden oracle — including ordering of equal keys across shard
+boundaries (stability through the shuffle, SURVEY §7 "bit-exactness
+across meshes").
 """
 
 import jax
@@ -16,8 +17,7 @@ import sortx
 from sortx import reference
 from sortx.parallel import dist_sort, dist_sort_kv, make_sort_mesh, shard_1d
 
-needs_multi = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs >=2 devices")
+needs_multi = pytest.mark.usefixtures("multi_device")
 
 
 def _mesh():
@@ -94,12 +94,9 @@ def test_dist_sort_kv_partial_bits(rng):
 @needs_multi
 def test_dist_sort_kv_value_dtypes(rng):
     """Values of any width ride the distributed sort: 4-byte dtypes as
-    a u32 view (bitonic-eligible), other widths via the XLA local
-    engine (regression: a blanket .view(u32) once changed the stream
-    length for f16/i64 values and crashed)."""
-    import importlib
-    ds_mod = importlib.import_module("sortx.parallel.dist_sort")
-
+    a u32 view, other widths as they are (regression: a blanket
+    .view(u32) once changed the stream length for f16/i64 values and
+    crashed)."""
     n = 16_000
     keys = rng.randint(0, 256, size=n).astype(np.uint32)
     mesh = _mesh()
@@ -113,8 +110,6 @@ def test_dist_sort_kv_value_dtypes(rng):
         assert np.asarray(vs).dtype == vals.dtype
         assert np.array_equal(np.asarray(ks), keys[order]), vals.dtype
         assert np.array_equal(np.asarray(vs), vals[order]), vals.dtype
-        if vals.dtype.itemsize != 4:
-            assert ds_mod.last_local_engine == "xla"
 
 
 @needs_multi
@@ -302,51 +297,13 @@ def test_dist_rank_merge_matches_sort_merge(rng, case):
 
 
 @needs_multi
-@pytest.mark.parametrize("case", ["kv", "presorted"])
-def test_dist_tree_merge_matches_sort_merge(rng, case):
-    """Round-4: step-5 merge TREE (pairwise bitonic merges of the d
-    received runs — the absorbed-merge pod lever, ~8.4x cheaper per
-    element than a re-sort on v5e) is bit-identical to the re-sort
-    path on the Pallas engine, including the in-graph skew fallback
-    (presorted input = diagonal arrivals overflow the cells)."""
-    import importlib
-    ds_mod = importlib.import_module("sortx.parallel.dist_sort")
-
-    mesh = make_sort_mesh(min(4, len(jax.devices())))  # d=4: 3 merges
-    n = 8_192
-    keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-    vals = np.arange(n, dtype=np.uint32)
-    if case == "presorted":
-        keys = np.sort(keys)
-    out = {}
-    for mode in ("sort", "tree"):
-        cfg = sortx.Config(engine="pallas", interpret=True,
-                           engine_min_n=0, engine_log_block=10,
-                           dist_local_merge=mode)
-        if case == "keys":
-            out[mode] = (np.asarray(dist_sort(jnp.asarray(keys),
-                                              mesh=mesh, config=cfg)),)
-        else:
-            out[mode] = tuple(np.asarray(x) for x in dist_sort_kv(
-                jnp.asarray(keys), jnp.asarray(vals), mesh=mesh,
-                config=cfg))
-        assert ds_mod.last_local_merge == mode
-        assert ds_mod.last_local_engine == "bitonic"
-    for a, b in zip(out["sort"], out["tree"]):
-        np.testing.assert_array_equal(a, b)
-
-
-@needs_multi
-def test_dist_native_merge_matches_sort_merge(rng):
+def test_dist_native_merge_matches_sort_merge(rng, native_lib):
     """dist_local_merge="native" (csrc k-way merge via pure_callback)
     is bit-identical to the re-sort path. Non-default (measured ~10%
-    slower in context under shard_map despite a 4-9x standalone win —
-    DESIGN_NOTES round 4), but kept as a supported option."""
+    slower in context under shard_map despite a 4-9x standalone win),
+    but kept as a supported option."""
     import importlib
 
-    from sortx.runtime import native
-    if not native.available():
-        pytest.skip("csrc/libsortx_host.so not built")
     ds_mod = importlib.import_module("sortx.parallel.dist_sort")
 
     mesh = _mesh()
@@ -361,162 +318,6 @@ def test_dist_native_merge_matches_sort_merge(rng):
         assert ds_mod.last_local_merge == mode
     for a, b in zip(out["sort"], out["native"]):
         np.testing.assert_array_equal(a, b)
-
-
-def test_tree_merge_unit(rng):
-    """_merge_runs_tree directly on constructed left-packed runs (no
-    cond): merged output equals the stable re-sort of the valid prefix,
-    pads re-packed at the tail."""
-    import importlib
-    ds_mod = importlib.import_module("sortx.parallel.dist_sort")
-
-    m, d = 1024, 4
-    sizes = np.array([100, 0, 1024, 60], np.int32)  # sum <= buf; one full-m run
-    runs = [np.sort(rng.randint(0, 50, size=s).astype(np.uint32))
-            for s in sizes]
-    buf = ds_mod._recv_buf_len(m, d, 64)
-    total = int(sizes.sum())
-    arr = np.full(buf, 0xFFFFFFFF, np.uint32)
-    arr[:total] = np.concatenate(runs)
-    pos = np.arange(buf, dtype=np.uint32)
-    cfg = sortx.Config(interpret=True, engine_log_block=10)
-    out_k, out_p = ds_mod._merge_runs_tree(
-        (jnp.asarray(arr), jnp.asarray(pos)), 2,
-        jnp.asarray(sizes), buf, m, d, cfg)
-    order = np.argsort(arr[:total], kind="stable")
-    np.testing.assert_array_equal(np.asarray(out_k)[:total],
-                                  arr[order])
-    np.testing.assert_array_equal(np.asarray(out_p)[:total],
-                                  pos[order])
-    assert np.all(np.asarray(out_k)[total:] == 0xFFFFFFFF)
-    # keys-only (num_keys=1) variant of the same runs
-    (ko,) = ds_mod._merge_runs_tree(
-        (jnp.asarray(arr),), 1, jnp.asarray(sizes), buf, m, d, cfg)
-    np.testing.assert_array_equal(np.asarray(ko)[:total], arr[order])
-
-
-@needs_multi
-def test_dist_local_bitonic_engine(rng):
-    """ROUND2.md known-gap closure: the per-shard local sorts route
-    through the Pallas bitonic network (interpret mode on the CPU mesh
-    — the exact composition Pallas-under-shard_map a pod would run),
-    bit-exact vs the lax.sort local engine, witness + spy asserted."""
-    import importlib
-
-    from sortx.ops import bitonic as bt
-    from sortx.ops import sort_pallas as sp
-    ds_mod = importlib.import_module("sortx.parallel.dist_sort")
-
-    mesh = _mesh()
-    # merge pinned to "sort": this test witnesses the LOCAL ENGINE under
-    # shard_map; the tree merge has its own dedicated tests above (and
-    # the auto default would lax.cond-trace BOTH step-5 branches here,
-    # doubling interpret compile time for no extra coverage).
-    cfg = sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                       engine_log_block=12, dist_local_merge="sort")
-    calls = []
-    orig = bt.bitonic_sort_streams
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return orig(*a, **kw)
-
-    n = 8_192
-    keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-    try:
-        # sort_pallas binds the name at import; patch both (test_engine
-        # does the same).
-        bt.bitonic_sort_streams = spy
-        sp.bitonic_sort_streams = spy
-        got = np.asarray(dist_sort(jnp.asarray(keys), mesh=mesh,
-                                   config=cfg))
-    finally:
-        bt.bitonic_sort_streams = orig
-        sp.bitonic_sort_streams = orig
-    assert ds_mod.last_local_engine == "bitonic"
-    assert len(calls) >= 2  # local sort + merge networks traced
-    assert np.array_equal(got, reference.radix_sort(keys))
-
-    # KV + duplicate-heavy keys: stability through the network path.
-    kd = rng.randint(0, 64, size=n).astype(np.uint32)
-    vals = np.arange(n, dtype=np.uint32)
-    ks, vs = dist_sort_kv(jnp.asarray(kd), jnp.asarray(vals), mesh=mesh,
-                          config=cfg)
-    gk, gv = reference.radix_sort_kv(kd, vals)
-    assert np.array_equal(np.asarray(ks), gk)
-    assert np.array_equal(np.asarray(vs), gv)
-
-    # Ragged n + skew (all-equal) through the network path.
-    ke = np.full(10_007, 0xABCD1234, dtype=np.uint32)
-    got = np.asarray(dist_sort(jnp.asarray(ke), mesh=mesh, config=cfg))
-    assert np.array_equal(got, ke)
-
-    # Partial sort_bits rides the full key as a 3rd stream (4 with KV).
-    kp = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-    gk, gv = reference.radix_sort_kv(kp, vals, sort_bits=8)
-    ks, vs = dist_sort_kv(jnp.asarray(kp), jnp.asarray(vals), 8,
-                          mesh=mesh, config=cfg)
-    assert np.array_equal(np.asarray(ks), gk)
-    assert np.array_equal(np.asarray(vs), gv)
-
-    # Default config on a CPU backend stays on the portable engine.
-    dist_sort(jnp.asarray(keys[:8192]), mesh=mesh)
-    assert ds_mod.last_local_engine == "xla"
-
-
-@needs_multi
-@pytest.mark.parametrize("case", ["keys", "kv", "skew"])
-def test_ring_exchange_merge_schedule(rng, case):
-    """Round-5 (VERDICT item 1): the ring exchange/merge OVERLAP
-    schedule — d-1 ppermute hops with pairwise bitonic merges
-    interleaved between hops — is bit-identical to the a2a+merge path
-    on every workload class, including the in-graph skew fallback
-    (all-equal keys: one run exceeds the static cell). Runs the real
-    Pallas network in interpret mode under shard_map."""
-    import importlib
-    ds_mod = importlib.import_module("sortx.parallel.dist_sort")
-
-    mesh = _mesh()
-    n = 12_000
-    cfg = sortx.Config(dist_exchange="ring", engine="pallas",
-                       interpret=True, engine_min_n=0,
-                       engine_log_block=10)
-    if case == "skew":
-        keys = np.full(n, 0xABCD1234, np.uint32)
-    else:
-        keys = rng.randint(0, 2**32 if case == "keys" else 64,
-                           size=n).astype(np.uint32)
-    if case == "keys" or case == "skew":
-        got = np.asarray(dist_sort(jnp.asarray(keys), mesh=mesh,
-                                   config=cfg))
-        assert ds_mod.last_exchange == "ring"
-        assert ds_mod.last_local_merge == "ring"
-        np.testing.assert_array_equal(got, np.sort(keys))
-    else:
-        vals = np.arange(n, dtype=np.uint32)
-        ks, vs = dist_sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                              mesh=mesh, config=cfg)
-        assert ds_mod.last_exchange == "ring"
-        order = np.argsort(keys, kind="stable")
-        np.testing.assert_array_equal(np.asarray(ks), keys[order])
-        np.testing.assert_array_equal(np.asarray(vs),
-                                      order.astype(np.uint32))
-
-
-@needs_multi
-def test_ring_gate_falls_back_without_network_engine(rng):
-    """dist_exchange="ring" on the XLA engine (or non-pow2 d) resolves
-    to the a2a schedule — and the witness says so."""
-    import importlib
-    ds_mod = importlib.import_module("sortx.parallel.dist_sort")
-
-    keys = rng.randint(0, 2**32, size=20_000, dtype=np.uint32)
-    cfg = sortx.Config(dist_exchange="ring")     # engine=auto -> xla here
-    got = np.asarray(dist_sort(jnp.asarray(keys), mesh=_mesh(),
-                               config=cfg))
-    assert ds_mod.last_exchange == "dense"
-    assert ds_mod.last_local_merge == "sort"
-    np.testing.assert_array_equal(got, np.sort(keys))
 
 
 @needs_multi
@@ -573,8 +374,7 @@ def test_ragged_exchange_contract_drives_execution(rng, case):
     _segment_layout) actually drives execution — swap the collective
     for the executable spec and run the FULL PSRS pipeline with
     use_ragged=True on the CPU mesh, asserting bit-equality with both
-    the oracle and the production dense path. The TPU-only test below
-    still covers the real lax.ragged_all_to_all on pod hardware."""
+    the oracle and the production dense path."""
     import importlib
     ds_mod = importlib.import_module("sortx.parallel.dist_sort")
 
@@ -616,19 +416,39 @@ def test_ragged_exchange_contract_drives_execution(rng, case):
         np.testing.assert_array_equal(g, e)
 
 
-@pytest.mark.skipif(
-    not (jax.default_backend() == "tpu" and len(jax.devices()) >= 2),
-    reason="real multi-chip TPU required (lights up on pod hardware)")
-def test_dist_sort_ragged_exchange_on_tpu(rng):
-    """THE ragged ICI path: executes lax.ragged_all_to_all for real."""
+@pytest.mark.parametrize("entry", ["dist_sort", "dist_sort_kv",
+                                   "dist_sort_padded",
+                                   "dist_sort_kv_padded"])
+def test_use_ragged_refused_without_collective(entry):
+    """With no ragged collective installed, use_ragged=True is a typed
+    error on every entry point, never a run of a collective that is
+    unimplemented (XLA:CPU) or gave wrong answers (H100)."""
     import importlib
     ds_mod = importlib.import_module("sortx.parallel.dist_sort")
 
+    assert ds_mod._ragged_impl is None
+    keys = jnp.arange(64, dtype=jnp.uint32)[::-1]
+    args = (keys, keys) if "kv" in entry else (keys,)
+    with pytest.raises(ValueError, match="use_ragged=True"):
+        getattr(ds_mod, entry)(*args, mesh=make_sort_mesh(1),
+                               use_ragged=True)
+    # The default exchange still answers on the same mesh.
+    out = getattr(ds_mod, entry)(*args, mesh=make_sort_mesh(1))
+    first = out if entry == "dist_sort" else out[0]
+    np.testing.assert_array_equal(np.asarray(first), np.arange(64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "equal"])
+def test_dist_sort_dense_exchange_on_gpu(multi_device, rng, case):
+    """The default dense exchange on a multi-GPU mesh, uniform and
+    all-equal keys, against numpy (the collectives run on NCCL)."""
     mesh = make_sort_mesh()
-    keys = rng.randint(0, 2**32, size=200_000, dtype=np.uint32)
-    out = dist_sort(jnp.asarray(keys), mesh=mesh, use_ragged=True)
-    assert ds_mod.last_exchange == "ragged"
-    assert np.array_equal(np.asarray(out), np.sort(keys))
-    ke = np.full(100_000, 3, np.uint32)  # skew through the ragged path
-    assert np.array_equal(np.asarray(
-        dist_sort(jnp.asarray(ke), mesh=mesh, use_ragged=True)), ke)
+    n = len(multi_device) * (1 << 20) + 7
+    keys = (rng.randint(0, 2**32, size=n, dtype=np.uint32)
+            if case == "uniform" else np.full(n, 3, np.uint32))
+    vals = np.arange(n, dtype=np.uint32)
+    ks, vs = dist_sort_kv(jnp.asarray(keys), jnp.asarray(vals), mesh=mesh)
+    order = np.argsort(keys, kind="stable")
+    assert np.array_equal(np.asarray(ks), keys[order])
+    assert np.array_equal(np.asarray(vs), order.astype(np.uint32))

@@ -1,4 +1,4 @@
-"""64-bit key dtypes (u64/i64/f64) — single-pass (hi, lo) engine path.
+"""64-bit key dtypes (u64/i64/f64) — the (hi, lo) word path.
 
 Requires jax x64 mode; every test runs under the ``enable_x64`` context
 so the default-off global config is untouched for the rest of the suite.
@@ -14,15 +14,6 @@ import numpy as np
 import pytest
 
 import sortx
-from tests.conftest import f64_device_bits_ok
-
-
-def _need_f64_bits():
-    if not f64_device_bits_ok():
-        import pytest
-        pytest.skip("backend emulates f64 as f32 on device (cannot "
-                    "bitcast f64 bits) — bit-exact f64 sort unsupported "
-                    "on this TPU compile stack")
 
 
 @contextlib.contextmanager
@@ -49,8 +40,6 @@ def _rand64(rng, dtype, n):
 @pytest.mark.parametrize("dtype", [np.uint64, np.int64, np.float64])
 @pytest.mark.parametrize("n", [1024, 20_000])
 def test_sort_64bit(rng, dtype, n):
-    if dtype == np.float64:
-        _need_f64_bits()
     k = _rand64(rng, dtype, n)
     with enable_x64():
         got = np.asarray(sortx.sort(jnp.asarray(k)))
@@ -60,8 +49,6 @@ def test_sort_64bit(rng, dtype, n):
 
 @pytest.mark.parametrize("dtype", [np.uint64, np.int64, np.float64])
 def test_sort_64bit_descending(rng, dtype):
-    if dtype == np.float64:
-        _need_f64_bits()
     k = _rand64(rng, dtype, 9_999)
     with enable_x64():
         got = np.asarray(sortx.sort(jnp.asarray(k), descending=True))
@@ -69,7 +56,6 @@ def test_sort_64bit_descending(rng, dtype):
 
 
 def test_sort_f64_special_values(rng):
-    _need_f64_bits()
     # Denormals, infinities, signed zeros: the monotone word transform
     # must reproduce IEEE order exactly (signed zeros compare equal, so
     # numpy's order matches elementwise either way).
@@ -85,7 +71,6 @@ def test_sort_f64_special_values(rng):
 
 
 def test_sort_f64_nan_total_order(rng):
-    _need_f64_bits()
     # NaNs order at the extremes by sign bit (the documented monotone
     # transform convention): negative NaNs first, positive NaNs last.
     k = np.concatenate([rng.standard_normal(4000),
@@ -130,8 +115,6 @@ def test_sort_kv_64bit_unstable_valid(rng):
 
 @pytest.mark.parametrize("dtype", [np.int64, np.float64])
 def test_argsort_64bit_stable(rng, dtype):
-    if dtype == np.float64:
-        _need_f64_bits()
     n = 20_000
     if dtype == np.int64:
         k = rng.randint(-30, 30, size=n).astype(np.int64)
@@ -153,17 +136,10 @@ def test_argsort_64bit_descending_stable(rng):
 
 
 def _engine_cfg():
-    from tests.conftest import on_tpu
-
-    if on_tpu():
-        return sortx.Config(engine="pallas", engine_min_n=0)
-    return sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                        engine_log_block=12)
+    return sortx.Config()
 
 
 def test_sort_64bit_engine_path(rng):
-    # n >= the engine floor so the Pallas (hi, lo) network actually runs
-    # (interpret mode on CPU).
     n = 8192
     k = _rand64(rng, np.uint64, n)
     v = np.arange(n, dtype=np.uint32)
@@ -176,8 +152,6 @@ def test_sort_64bit_engine_path(rng):
     order = np.argsort(k, kind="stable")
     assert np.array_equal(np.asarray(ks), k[order])
     assert np.array_equal(np.asarray(vs), v[order])
-    # (argsort rides the same (hi, lo, idx) 3-stream network as sort_kv
-    # — covered by the slow tier to keep the default suite under budget)
 
 
 @pytest.mark.slow
@@ -231,28 +205,19 @@ def test_sort_64bit_roundtrip_extremes():
 
 @pytest.mark.parametrize("vdtype", [np.uint64, np.int64, np.float64])
 def test_sort_kv_64bit_values_engine_path(rng, vdtype):
-    """Round-5 (VERDICT item 8): 64-bit VALUE payloads ride the Pallas
-    network as two u32 word streams instead of silently falling back
-    to XLA — engine witness + exact round-trip (extreme bit patterns
-    included)."""
-    from sortx.ops import sort_pallas as sp
-
+    """64-bit VALUE payloads round-trip exactly (extreme bit patterns
+    included) and follow their keys stably."""
     n = 20_000
     keys = rng.randint(0, 64, size=n).astype(np.uint32)  # heavy ties
     vals = _rand64(rng, vdtype, n)
     # plant extreme values to pin exact word round-trips
     if vdtype == np.float64:
-        _need_f64_bits()   # stack cannot bitcast f64 -> word pairs
         vals[:6] = [0.0, -0.0, np.inf, -np.inf, 5e-324, -1.5]
     else:
         vals[:3] = [0, np.iinfo(vdtype).min, np.iinfo(vdtype).max]
     order = np.argsort(keys, kind="stable")
-    cfg = sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                       engine_log_block=12)
     with enable_x64():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               config=cfg)
-        assert sp.last_dispatch == "bitonic"
+        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
         ks, vs = np.asarray(ks), np.asarray(vs)
     assert vs.dtype == vdtype
     assert np.array_equal(ks, keys[order])
@@ -260,19 +225,14 @@ def test_sort_kv_64bit_values_engine_path(rng, vdtype):
 
 
 def test_sort_kv_64bit_values_unstable_engine(rng):
-    """Unstable KV with 64-bit values: engine path, result is a valid
+    """Unstable KV with 64-bit values: the result is a valid
     permutation sorted by key."""
-    from sortx.ops import sort_pallas as sp
-
-    n = 1 << 14                       # pow2: key-only tie_break branch
+    n = 1 << 14
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     vals = _rand64(rng, np.uint64, n)
-    cfg = sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                       engine_log_block=12)
     with enable_x64():
         ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               stable=False, config=cfg)
-        assert sp.last_dispatch == "bitonic"
+                               stable=False)
         ks, vs = np.asarray(ks), np.asarray(vs)
     assert np.all(ks[1:] >= ks[:-1])
     got = np.stack([ks.astype(np.uint64), vs], 1)
@@ -282,18 +242,12 @@ def test_sort_kv_64bit_values_unstable_engine(rng):
         exp[np.lexsort((exp[:, 1], exp[:, 0]))])
 
 
-@pytest.mark.skipif(
-    not __import__("jax").default_backend() == "tpu",
-    reason="regression is in Mosaic lowering (kernel D under x64); "
-           "interpret mode cannot reach it")
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["v64", "k64"])
-def test_x64_large_n_kernel_d_compiles(rng, case):
-    """Round-5 regression: kernel D's grid-step scalar math recursed
-    infinitely in Mosaic's convert lowering under x64 (weak-typed
-    literals) — and kernel D only runs at n > 2^17, which no x64 test
-    reached. Pin BOTH large-n x64 engine paths: 64-bit values and
+def test_x64_large_n_on_gpu(rng, case):
+    """Both large-n x64 paths compiled for the card: 64-bit values and
     64-bit keys."""
-    n = 1 << 18
+    n = 1 << 22
     with enable_x64():
         if case == "v64":
             keys = rng.randint(0, 1 << 20, size=n).astype(np.uint32)

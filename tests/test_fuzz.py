@@ -1,6 +1,6 @@
 """Differential fuzzing vs the golden oracle.
 
-Randomized shapes/distributions/engines, all compared bit-exactly.
+Randomized shapes/distributions, all compared bit-exactly.
 Seeded deterministically per case (reference style: fixed seeds).
 """
 
@@ -10,7 +10,6 @@ import pytest
 
 import sortx
 from sortx import reference
-from tests.conftest import on_tpu
 
 
 def _dist(rng, kind, n):
@@ -35,13 +34,6 @@ def _dist(rng, kind, n):
 DISTS = ["uniform", "low", "bytes", "runs", "extremes"]
 
 
-def _engines():
-    engines = [sortx.Config(engine="host")]
-    if on_tpu():
-        engines.append(sortx.Config(engine="pallas"))
-    return engines
-
-
 @pytest.mark.parametrize("case", range(20))
 def test_fuzz_sort(case):
     rng = np.random.RandomState(1000 + case)
@@ -50,9 +42,8 @@ def test_fuzz_sort(case):
     keys = _dist(rng, kind, n)
     bits = int(rng.choice([32, 32, 32, 4, 8, 17, 31]))
     golden = reference.radix_sort(keys, bits)
-    for cfg in _engines():
-        got = np.asarray(sortx.sort(jnp.asarray(keys), bits, config=cfg))
-        assert np.array_equal(got, golden), (case, kind, n, bits)
+    got = np.asarray(sortx.sort(jnp.asarray(keys), bits))
+    assert np.array_equal(got, golden), (case, kind, n, bits)
 
 
 @pytest.mark.parametrize("case", range(12))
@@ -63,32 +54,22 @@ def test_fuzz_sort_kv(case):
     keys = _dist(rng, kind, n)
     vals = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     gk, gv = reference.radix_sort_kv(keys, vals)
-    for cfg in _engines():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               config=cfg)
-        assert np.array_equal(np.asarray(ks), gk), (case, kind, n)
-        assert np.array_equal(np.asarray(vs), gv), (case, kind, n)
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    assert np.array_equal(np.asarray(ks), gk), (case, kind, n)
+    assert np.array_equal(np.asarray(vs), gv), (case, kind, n)
 
 
-@pytest.mark.parametrize("case", range(8 if on_tpu() else 5))
+@pytest.mark.parametrize("case", range(8))
 def test_fuzz_sort_rows(case):
     rng = np.random.RandomState(4000 + case)
-    # Interpret execution is ~0.3 ms/element on CPU: cap the grid there
-    # (the TPU runner keeps the full-size sweep).
-    B = int(rng.randint(1, 64 if on_tpu() else 8))
-    L = int(rng.randint(2, 4000 if on_tpu() else 700))
+    B = int(rng.randint(1, 64))
+    L = int(rng.randint(2, 4000))
     kind = DISTS[case % len(DISTS)]
     keys = _dist(rng, kind, B * L).reshape(B, L)
-    if on_tpu():
-        cfg = sortx.Config(engine="pallas", engine_min_n=0)
-    else:
-        cfg = sortx.Config(engine="pallas", interpret=True,
-                           engine_min_n=0, engine_log_block=12)
-    got = np.asarray(sortx.sort_rows(jnp.asarray(keys), config=cfg))
+    got = np.asarray(sortx.sort_rows(jnp.asarray(keys)))
     assert np.array_equal(got, np.sort(keys, axis=1)), (case, kind, B, L)
     vals = np.tile(np.arange(L, dtype=np.uint32), (B, 1))
-    ks, vs = sortx.sort_kv_rows(jnp.asarray(keys), jnp.asarray(vals),
-                                config=cfg)
+    ks, vs = sortx.sort_kv_rows(jnp.asarray(keys), jnp.asarray(vals))
     order = np.argsort(keys, axis=1, kind="stable")
     assert np.array_equal(np.asarray(ks),
                           np.take_along_axis(keys, order, 1))
@@ -96,17 +77,14 @@ def test_fuzz_sort_rows(case):
                           np.take_along_axis(vals, order, 1))
 
 
-@pytest.mark.parametrize("case", range(12 if on_tpu() else 8))
+@pytest.mark.parametrize("case", range(12))
 def test_fuzz_scan(case):
     rng = np.random.RandomState(3000 + case)
-    n = int(rng.randint(1, 200_000 if on_tpu() else 25_000))
+    n = int(rng.randint(1, 200_000))
     # include values that overflow int32 sums (wraparound must be exact)
     x = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     exp, exp_total = reference.exclusive_scan(x, with_total=True)
-    cfg = (sortx.Config(engine="pallas") if on_tpu()
-           else sortx.Config(engine="pallas", interpret=True,
-                             scan_tile_elems=8192))
-    got, total = sortx.scan(jnp.asarray(x), with_total=True, config=cfg)
+    got, total = sortx.scan(jnp.asarray(x), with_total=True)
     assert np.array_equal(np.asarray(got), exp), (case, n)
     assert np.uint32(np.asarray(total)) == exp_total
 
@@ -119,23 +97,19 @@ def test_fuzz_merge(case):
     kind = DISTS[case % len(DISTS)]
     a = np.sort(_dist(rng, kind, na))
     b = np.sort(_dist(rng, kind, nb))
-    for cfg in _engines():
-        got = np.asarray(sortx.merge(jnp.asarray(a), jnp.asarray(b),
-                                     config=cfg))
-        assert np.array_equal(got, np.sort(np.concatenate([a, b]))), (
-            case, kind, na, nb)
+    got = np.asarray(sortx.merge(jnp.asarray(a), jnp.asarray(b)))
+    assert np.array_equal(got, np.sort(np.concatenate([a, b]))), (
+        case, kind, na, nb)
     # KV with std::merge tie semantics (a first, input order kept)
     va = np.arange(na, dtype=np.uint32)
     vb = np.arange(nb, dtype=np.uint32) | np.uint32(1 << 31)
-    for cfg in _engines():
-        ks, vs = sortx.merge_kv(jnp.asarray(a), jnp.asarray(va),
-                                jnp.asarray(b), jnp.asarray(vb),
-                                config=cfg)
-        order = np.argsort(np.concatenate([a, b]), kind="stable")
-        assert np.array_equal(np.asarray(ks),
-                              np.concatenate([a, b])[order])
-        assert np.array_equal(np.asarray(vs),
-                              np.concatenate([va, vb])[order])
+    ks, vs = sortx.merge_kv(jnp.asarray(a), jnp.asarray(va),
+                            jnp.asarray(b), jnp.asarray(vb))
+    order = np.argsort(np.concatenate([a, b]), kind="stable")
+    assert np.array_equal(np.asarray(ks),
+                          np.concatenate([a, b])[order])
+    assert np.array_equal(np.asarray(vs),
+                          np.concatenate([va, vb])[order])
 
 
 @pytest.mark.parametrize("case", range(8))

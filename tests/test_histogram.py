@@ -5,17 +5,6 @@ import numpy as np
 import pytest
 
 import sortx
-from tests.conftest import on_tpu
-
-
-def _cfgs():
-    cfgs = [sortx.Config(engine="host")]
-    if on_tpu():
-        cfgs.append(sortx.Config(engine="pallas"))
-    else:
-        cfgs.append(sortx.Config(engine="pallas", interpret=True,
-                                 sort_tile_elems=2048))
-    return cfgs
 
 
 @pytest.mark.parametrize("bits,shift", [(4, 0), (8, 8), (4, 28), (1, 31),
@@ -26,16 +15,14 @@ def test_histogram_global(rng, bits, shift):
     # (radix-1), not radix-1 — the round-1 pad-accounting bug (ADVICE.md).
     x = rng.randint(0, 2**32, size=100_003, dtype=np.uint32)
     exp = np.bincount((x >> shift) & ((1 << bits) - 1), minlength=1 << bits)
-    for cfg in _cfgs():
-        got = np.asarray(sortx.histogram(jnp.asarray(x), bits, shift,
-                                         config=cfg))
-        assert np.array_equal(got, exp), (cfg.engine, bits, shift)
+    got = np.asarray(sortx.histogram(jnp.asarray(x), bits, shift))
+    assert np.array_equal(got, exp), (bits, shift)
 
 
 def test_histogram_per_tile(rng):
     n = 4096 * 4
     x = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-    cfg = sortx.Config(engine="host", sort_tile_elems=4096)
+    cfg = sortx.Config(sort_tile_elems=4096)
     got = np.asarray(sortx.histogram(jnp.asarray(x), 4, 0, per_tile=True,
                                      config=cfg))
     assert got.shape[0] == 4 and got.sum() == n
@@ -48,20 +35,17 @@ def test_histogram_ragged_and_empty(rng):
     for n in (0, 1, 13, 5000):
         x = rng.randint(0, 2**32, size=n, dtype=np.uint32)
         exp = np.bincount(x & 255, minlength=256)
-        for cfg in _cfgs():
-            got = np.asarray(sortx.histogram(jnp.asarray(x), 8, 0,
-                                             config=cfg))
-            assert np.array_equal(got, exp), (cfg.engine, n)
+        got = np.asarray(sortx.histogram(jnp.asarray(x), 8, 0))
+        assert np.array_equal(got, exp), n
 
 
 def test_histogram_ragged_high_shift(rng):
-    """ADVICE.md medium: ragged n with shift=28, bits=8 — engines agree."""
+    """Ragged n with shift=28, bits=8: the pad lands in no bucket."""
     n = 5000
     x = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     exp = np.bincount((x >> 28) & 255, minlength=256)
-    for cfg in _cfgs():
-        got = np.asarray(sortx.histogram(jnp.asarray(x), 8, 28, config=cfg))
-        assert np.array_equal(got, exp), cfg.engine
+    got = np.asarray(sortx.histogram(jnp.asarray(x), 8, 28))
+    assert np.array_equal(got, exp)
 
 
 def test_histogram_validates():

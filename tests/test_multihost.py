@@ -1,8 +1,9 @@
 """Real multi-process multihost test (round-1 VERDICT: init_multihost
 was unproven). Spawns two subprocesses, each owning 2 CPU devices,
-connected by jax.distributed (gloo) into one 4-device mesh — the same
-one-process-per-host topology as a TPU pod. dist_sort / dist_sort_kv /
-dist_sort_padded run across the process boundary and every process
+connected by jax.distributed (gloo) into one 4-device mesh — the
+one-process-per-host topology of a multi-host cluster. dist_sort /
+dist_sort_kv / dist_sort_padded run across the process boundary and
+every process
 verifies its own shards against the global oracle.
 """
 
@@ -25,13 +26,11 @@ def _free_port() -> int:
 
 
 @pytest.mark.slow
-@pytest.mark.skipif(os.environ.get("SORTX_TEST_TPU"),
-                    reason="multi-process CPU sim; skip on the TPU runner")
 def test_two_process_scale_2e27():
     """Opt-in scale tier (round-4 VERDICT weak #4): 2 processes x 2^27
     total keys through the full multihost bench driver — shards-sorted,
     cross-process boundaries, and multiset checks all enforced by the
-    workers; also refreshes benchmarks/MULTIHOST_SCALE.json."""
+    workers."""
     r = subprocess.run(
         [sys.executable,
          os.path.join(_ROOT, "benchmarks", "bench_multihost.py"),
@@ -41,8 +40,6 @@ def test_two_process_scale_2e27():
     assert '"multihost_sort"' in r.stdout
 
 
-@pytest.mark.skipif(os.environ.get("SORTX_TEST_TPU"),
-                    reason="multi-process CPU sim; skip on the TPU runner")
 def test_two_process_dist_sort():
     port = _free_port()
     env = dict(os.environ)

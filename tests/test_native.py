@@ -5,8 +5,7 @@ import pytest
 
 from sortx.runtime import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="libsortx_host.so not built")
+pytestmark = pytest.mark.usefixtures("native_lib")
 
 
 def test_native_matches_numpy(rng):

@@ -4,10 +4,12 @@ The reference transparently backs >max-alloc buffers in host memory
 (Adl/CL/AdlCL.inl:373-378); sortx makes the capacity limit typed
 (CapacityError) and provides sort_large / sort_kv_large: device-sorted
 chunks + the native parallel k-way merge. CPU tests force multi-chunk
-geometry with tiny chunk_elems; the 2^30 silicon run lives in
-tools/verify_tpu.py's big-n stage.
+geometry with tiny chunk_elems; chip_smoke.py runs sort_large on the
+GPU and tools/verify_oocore_2e30.py at 2^30 keys on the CPU.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -16,8 +18,7 @@ from sortx.ops import out_of_core as oc
 from sortx.runtime import native
 from sortx.utils.errors import CapacityError
 
-needs_native = pytest.mark.skipif(not native.available(),
-                                  reason="libsortx_host.so not built")
+needs_native = pytest.mark.usefixtures("native_lib")
 
 
 @needs_native
@@ -113,18 +114,111 @@ def test_sort_large_validation():
         sortx.sort_large(np.zeros(8, np.uint8))
 
 
+class _FakeDev:
+    def __init__(self, kind="NVIDIA H100 80GB HBM3", platform="gpu",
+                 limit=1 << 30):
+        self.device_kind, self.platform, self._limit = kind, platform, limit
+
+    def memory_stats(self):
+        return {"bytes_limit": self._limit}
+
+
 def test_capacity_error_raised(monkeypatch):
-    """A fake 1GB device limit turns an oversized sort into a typed
+    """A fake 1GB H100 turns an oversized sort into a typed
     CapacityError naming sort_large — never an opaque allocator OOM."""
     import jax
 
-    class FakeDev:
-        def memory_stats(self):
-            return {"bytes_limit": 1 << 30}
-
-    monkeypatch.setattr(jax, "devices", lambda *a: [FakeDev()])
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDev()])
     with pytest.raises(CapacityError, match="sort_large"):
-        oc.check_device_capacity(1 << 28, 1)
+        oc.check_device_capacity(1 << 28, 4)
     # Fits: no raise.
-    oc.check_device_capacity(1 << 24, 1)
-    assert oc.device_capacity_keys(1) == 1 << 26  # 0.9GB / 8B per key
+    oc.check_device_capacity(1 << 24, 4)
+    factor = oc._BYTES_PER_OPERAND_BYTE["NVIDIA H100 80GB HBM3"]
+    assert oc.device_capacity_keys(4) == int((1 << 30) // (factor * 4))
+
+
+@pytest.mark.parametrize("operand_bytes", [4, 8, 12, 16])
+def test_capacity_estimate_scales_with_operand_bytes(monkeypatch,
+                                                     operand_bytes):
+    """The estimate is the measured bytes per operand byte: twice the
+    operand bytes fit half the keys, and the keys-only u32 sort of the
+    measured 2^27 fits an 80 GB card's default 75% allocator limit."""
+    import jax
+
+    limit = int(0.75 * 80e9)
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDev(limit=limit)])
+    cap = oc.device_capacity_keys(operand_bytes)
+    assert cap == int(limit // (3.05 * operand_bytes))
+    assert cap >= 1 << 27
+    assert oc.device_capacity_keys(4) >= cap
+
+
+def test_capacity_unknown_device_is_an_error(monkeypatch):
+    """No memory model for a card means an error, never a guess."""
+    import jax
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [_FakeDev(kind="Some Other GPU")])
+    with pytest.raises(ValueError, match="Some Other GPU"):
+        oc.device_capacity_keys(4)
+    with pytest.raises(ValueError, match="no sort memory model"):
+        sortx.sort(jnp.zeros((16,), jnp.uint32))
+
+
+def test_capacity_not_checked_on_cpu(monkeypatch):
+    """The CPU backend has host memory and no device limit."""
+    import jax
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [_FakeDev(kind="cpu", platform="cpu")])
+    assert oc.device_capacity_keys(4) is None
+    oc.check_device_capacity(1 << 40, 16)
+
+
+def test_sort_paths_check_capacity(monkeypatch, rng):
+    """sort and sort_kv ask for the operand bytes they sort: 4 for u32
+    keys, 8 for partial bits (masked key + full key), key + value bytes
+    for key-value sorts."""
+    seen = []
+    import importlib
+
+    sort_mod = importlib.import_module("sortx.ops.sort")
+    monkeypatch.setattr(sort_mod, "check_device_capacity",
+                        lambda n, b: seen.append((n, b)))
+    k = jnp.asarray(rng.randint(0, 2**32, size=64, dtype=np.uint32))
+    sortx.sort(k)
+    sortx.sort(k, 8)
+    sortx.sort_kv(k, k)
+    sortx.sort_kv(k, k.astype(jnp.float16))
+    assert seen == [(64, 4), (64, 8), (64, 8), (64, 6)]
+
+
+def test_sort_paths_check_capacity_64bit_keys(monkeypatch, rng):
+    """64-bit keys are checked too: 12 operand bytes for sort, plus the
+    value bytes for sort_kv, so an oversized 64-bit key-value sort
+    raises CapacityError before it can run out of device memory."""
+    seen = []
+    import importlib
+
+    sort_mod = importlib.import_module("sortx.ops.sort")
+    monkeypatch.setattr(sort_mod, "check_device_capacity",
+                        lambda n, b: seen.append((n, b)))
+    with jax.enable_x64(True):
+        k = jnp.asarray(rng.randint(0, 2**62, size=64, dtype=np.int64)
+                        .astype(np.uint64))
+        sortx.sort(k)
+        sortx.sort_kv(k, k.astype(jnp.uint32))
+        sortx.sort_kv(k, k)
+    # sort's two 32-bit passes check their own 8 bytes as well.
+    assert seen == [(64, 12), (64, 8), (64, 8), (64, 16), (64, 20)]
+
+
+def test_capacity_error_64bit_key_value(monkeypatch):
+    """The 64-bit key-value path raises the typed error on a card too
+    small for it."""
+    with jax.enable_x64(True):
+        k = jnp.zeros((1 << 25,), jnp.uint64)
+        v = jnp.zeros((1 << 25,), jnp.uint32)
+        monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDev()])
+        with pytest.raises(CapacityError, match="sort_large"):
+            sortx.sort_kv(k, v)

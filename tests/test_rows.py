@@ -1,8 +1,6 @@
 """Batched independent row sorts (sortx.sort_rows / sort_kv_rows).
 
-Beyond-reference capability; oracle = numpy row-wise sort. On CPU the
-engine path runs in interpret mode (shrunken geometry) like the other
-engine tests; on TPU (SORTX_TEST_TPU=1) the real kernels compile.
+Beyond-reference capability; oracle = numpy row-wise sort.
 """
 
 import jax.numpy as jnp
@@ -10,18 +8,10 @@ import numpy as np
 import pytest
 
 import sortx
-from sortx.ops import rows as rows_mod
-from tests.conftest import on_tpu
 
 
-def _cfg(**kw):
-    if on_tpu():
-        base = dict(engine="pallas", engine_min_n=0)
-    else:
-        base = dict(engine="pallas", interpret=True, engine_min_n=0,
-                    engine_log_block=12)
-    base.update(kw)
-    return sortx.Config(**base)
+def _cfg():
+    return sortx.Config()
 
 
 @pytest.mark.parametrize("shape", [(64, 512), (33, 1000), (128, 256),
@@ -30,7 +20,6 @@ def test_sort_rows_sweep(rng, shape):
     B, L = shape
     k = rng.randint(0, 2**32, size=(B, L), dtype=np.uint32)
     got = np.asarray(sortx.sort_rows(jnp.asarray(k), config=_cfg()))
-    assert rows_mod.last_dispatch == "bitonic-rows"
     assert np.array_equal(got, np.sort(k, axis=1))
 
 
@@ -61,7 +50,6 @@ def test_sort_kv_rows_stability(rng):
     v = np.tile(np.arange(L, dtype=np.uint32), (B, 1))
     ks, vs = sortx.sort_kv_rows(jnp.asarray(k), jnp.asarray(v),
                                 config=_cfg())
-    assert rows_mod.last_dispatch == "bitonic-rows"
     order = np.argsort(k, axis=1, kind="stable")
     assert np.array_equal(np.asarray(ks), np.take_along_axis(k, order, 1))
     assert np.array_equal(np.asarray(vs), np.take_along_axis(v, order, 1))
@@ -82,8 +70,7 @@ def test_sort_kv_rows_value_dtypes(rng):
 
 def test_sort_rows_xla_fallback_and_validation(rng):
     k = rng.randint(0, 2**32, size=(4, 32), dtype=np.uint32)
-    got = np.asarray(sortx.sort_rows(jnp.asarray(k)))  # tiny -> xla
-    assert rows_mod.last_dispatch == "xla"
+    got = np.asarray(sortx.sort_rows(jnp.asarray(k)))
     assert np.array_equal(got, np.sort(k, axis=1))
     with pytest.raises(ValueError):
         sortx.sort_rows(jnp.zeros((8,), jnp.uint32))

@@ -262,23 +262,34 @@ def test_profile_rows_not_emitted_under_user_jit(tmp_path, rng):
 
 
 def test_profiling_kernel_level_rows_engine_passes(tmp_path, rng):
-    """level="kernel": the engine's internal Pallas passes (kernels
-    A/B/D) each emit a row — the analog of the reference profiling each
-    enqueued kernel. Eager call on the interpret-mode engine."""
+    """level="kernel": internal launches wrapped with
+    ``profiled(name, level="kernel")`` each emit a row beside the public
+    op's — the analog of the reference profiling each enqueued kernel —
+    and emit none at the default "op" level."""
+    from sortx.runtime.launcher import profiled
+
     csv = str(tmp_path / "prof.csv")
     keys = jnp.asarray(rng.randint(0, 2**32, size=8192, dtype=np.uint32))
-    cfg = sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                       engine_log_block=12)
+    inner = profiled("demo.inner_pass", level="kernel")(
+        lambda k: sortx.sort(k))
     toggle_profiling(True, csv, level="kernel")
     try:
-        out = sortx.sort(keys, config=cfg)
+        out = inner(keys)
     finally:
         toggle_profiling(False, level="op")
     assert np.array_equal(np.asarray(out), np.sort(np.asarray(keys)))
     lines = open(csv).read().strip().splitlines()
-    assert any(l.startswith("bitonic.kernel_a") for l in lines), lines
-    assert any(l.startswith("bitonic.kernel_b") for l in lines), lines
-    assert any(l.startswith("bitonic.kernel_d") for l in lines), lines
+    assert any(l.startswith("demo.inner_pass,") for l in lines), lines
+    assert any(l.startswith("sort,") for l in lines), lines
+
+    csv2 = str(tmp_path / "prof_op.csv")
+    toggle_profiling(True, csv2)
+    try:
+        inner(keys)
+    finally:
+        toggle_profiling(False)
+    lines = open(csv2).read().strip().splitlines()
+    assert not any(l.startswith("demo.inner_pass") for l in lines), lines
     assert any(l.startswith("sort,") for l in lines), lines
 
 
@@ -302,7 +313,7 @@ def test_capture_next_op_and_replay_op(tmp_path, rng):
 
     # kwargs incl. a Config dataclass round-trip
     path2 = str(tmp_path / "cap2.npz")
-    cfg = sortx.Config(engine="host")
+    cfg = sortx.Config(dist_local_merge="rank")
     vals = jnp.arange(4096, dtype=jnp.uint32)
     capture_next_op(path2, match="sort_kv")
     ks1, vs1 = sortx.sort_kv(keys, vals, config=cfg)

@@ -6,7 +6,6 @@ import numpy as np
 import pytest
 
 import sortx
-from tests.conftest import engine_cfgs as _engine_cfgs
 
 
 def _ragged_offsets(rng, n, s):
@@ -28,10 +27,9 @@ def test_sort_segments_ragged(rng, s):
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     offsets = _ragged_offsets(rng, n, s)
     exp = _oracle(keys, offsets)
-    for cfg in _engine_cfgs():
-        got = np.asarray(sortx.sort_segments(
-            jnp.asarray(keys), jnp.asarray(offsets), config=cfg))
-        assert np.array_equal(got, exp), (cfg.engine, s)
+    got = np.asarray(sortx.sort_segments(
+        jnp.asarray(keys), jnp.asarray(offsets)))
+    assert np.array_equal(got, exp), s
 
 
 def test_sort_segments_descending_and_dtypes(rng):
@@ -39,14 +37,12 @@ def test_sort_segments_descending_and_dtypes(rng):
     offsets = _ragged_offsets(rng, n, 33)
     f = rng.randn(n).astype(np.float32)
     i = rng.randint(-2**31, 2**31, size=n).astype(np.int32)
-    for cfg in _engine_cfgs():
-        gf = np.asarray(sortx.sort_segments(
-            jnp.asarray(f), jnp.asarray(offsets), descending=True,
-            config=cfg))
-        assert np.array_equal(gf, _oracle(f, offsets, True)), cfg.engine
-        gi = np.asarray(sortx.sort_segments(
-            jnp.asarray(i), jnp.asarray(offsets), config=cfg))
-        assert np.array_equal(gi, _oracle(i, offsets)), cfg.engine
+    gf = np.asarray(sortx.sort_segments(
+        jnp.asarray(f), jnp.asarray(offsets), descending=True))
+    assert np.array_equal(gf, _oracle(f, offsets, True))
+    gi = np.asarray(sortx.sort_segments(
+        jnp.asarray(i), jnp.asarray(offsets)))
+    assert np.array_equal(gi, _oracle(i, offsets))
 
 
 def test_sort_segments_extreme_skew(rng):
@@ -55,10 +51,9 @@ def test_sort_segments_extreme_skew(rng):
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     offsets = np.array([0, 1, 1, 1, 2, 3, n - 1, n, n], dtype=np.int32)
     exp = _oracle(keys, offsets)
-    for cfg in _engine_cfgs():
-        got = np.asarray(sortx.sort_segments(
-            jnp.asarray(keys), jnp.asarray(offsets), config=cfg))
-        assert np.array_equal(got, exp), cfg.engine
+    got = np.asarray(sortx.sort_segments(
+        jnp.asarray(keys), jnp.asarray(offsets)))
+    assert np.array_equal(got, exp)
 
 
 def test_sort_kv_segments_stable(rng):
@@ -71,12 +66,10 @@ def test_sort_kv_segments_stable(rng):
     for a, b in zip(offsets[:-1], offsets[1:]):
         order = np.argsort(ek[a:b], kind="stable")
         ek[a:b], ev[a:b] = ek[a:b][order], ev[a:b][order]
-    for cfg in _engine_cfgs(full=True):   # the file's engine-parity test
-        ks, vs = sortx.sort_kv_segments(
-            jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(offsets),
-            config=cfg)
-        assert np.array_equal(np.asarray(ks), ek), cfg.engine
-        assert np.array_equal(np.asarray(vs), ev), cfg.engine
+    ks, vs = sortx.sort_kv_segments(
+        jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(offsets))
+    assert np.array_equal(np.asarray(ks), ek)
+    assert np.array_equal(np.asarray(vs), ev)
 
 
 def test_sort_segments_validation(rng):

@@ -6,33 +6,27 @@ import numpy as np
 import pytest
 
 import sortx
-from tests.conftest import engine_cfgs as _engine_cfgs
-
-
 
 
 @pytest.mark.parametrize("n", [1, 2, 1000, 16_384, 65_537])
 def test_kth_value_sweep(rng, n):
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     srt = np.sort(keys)
-    # Engine-parity at ONE engine-sized n; host covers the sweep.
-    for cfg in _engine_cfgs(full=(n == 16_384)):
-        for k in {0, n // 2, n - 1}:
-            got = sortx.kth_value(jnp.asarray(keys), k, config=cfg)
-            assert np.uint32(got) == srt[k], (cfg.engine, n, k)
+    for k in {0, n // 2, n - 1}:
+        got = sortx.kth_value(jnp.asarray(keys), k)
+        assert np.uint32(got) == srt[k], (n, k)
 
 
 def test_kth_value_dtypes_and_median(rng):
     n = 50_000
     i = rng.randint(-2**31, 2**31, size=n).astype(np.int32)
     f = rng.randn(n).astype(np.float32)
-    for cfg in _engine_cfgs():
-        gi = sortx.kth_value(jnp.asarray(i), 12_345, config=cfg)
-        assert np.int32(gi) == np.sort(i)[12_345], cfg.engine
-        gf = sortx.kth_value(jnp.asarray(f), n - 1, config=cfg)
-        assert np.float32(gf) == np.sort(f)[-1], cfg.engine
-        gm = sortx.median(jnp.asarray(f), config=cfg)
-        assert np.float32(gm) == np.sort(f)[(n - 1) // 2], cfg.engine
+    gi = sortx.kth_value(jnp.asarray(i), 12_345)
+    assert np.int32(gi) == np.sort(i)[12_345]
+    gf = sortx.kth_value(jnp.asarray(f), n - 1)
+    assert np.float32(gf) == np.sort(f)[-1]
+    gm = sortx.median(jnp.asarray(f))
+    assert np.float32(gm) == np.sort(f)[(n - 1) // 2]
 
 
 def test_kth_value_duplicates_and_traced_k(rng):
@@ -61,10 +55,8 @@ def test_kth_value_validation():
 def test_top_k_values(rng, n, k):
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     exp = np.sort(keys)[::-1][:k]
-    # Engine-parity at ONE mid size; host covers the rest of the sweep.
-    for cfg in _engine_cfgs(full=(n == 8192)):
-        got = np.asarray(sortx.top_k(jnp.asarray(keys), k, config=cfg))
-        assert np.array_equal(got, exp), (cfg.engine, n, k)
+    got = np.asarray(sortx.top_k(jnp.asarray(keys), k))
+    assert np.array_equal(got, exp), (n, k)
 
 
 def test_top_k_indices_match_lax(rng):
@@ -72,22 +64,18 @@ def test_top_k_indices_match_lax(rng):
     n = 100_000
     keys = rng.randint(0, 256, size=n).astype(np.uint32)  # heavy ties
     ev, ei = jax.lax.top_k(jnp.asarray(keys), 512)
-    for cfg in _engine_cfgs():
-        gv, gi = sortx.top_k(jnp.asarray(keys), 512, return_indices=True,
-                             config=cfg)
-        assert np.array_equal(np.asarray(gv), np.asarray(ev)), cfg.engine
-        assert np.array_equal(np.asarray(gi), np.asarray(ei)), cfg.engine
+    gv, gi = sortx.top_k(jnp.asarray(keys), 512, return_indices=True)
+    assert np.array_equal(np.asarray(gv), np.asarray(ev))
+    assert np.array_equal(np.asarray(gi), np.asarray(ei))
 
 
 def test_top_k_floats_and_ragged_tail(rng):
     n = 50_001                                            # ragged tail
     f = rng.randn(n).astype(np.float32)
     ev, ei = jax.lax.top_k(jnp.asarray(f), 65)
-    for cfg in _engine_cfgs():
-        gv, gi = sortx.top_k(jnp.asarray(f), 65, return_indices=True,
-                             config=cfg)
-        assert np.array_equal(np.asarray(gv), np.asarray(ev)), cfg.engine
-        assert np.array_equal(np.asarray(gi), np.asarray(ei)), cfg.engine
+    gv, gi = sortx.top_k(jnp.asarray(f), 65, return_indices=True)
+    assert np.array_equal(np.asarray(gv), np.asarray(ev))
+    assert np.array_equal(np.asarray(gi), np.asarray(ei))
 
 
 def test_top_k_validation():

@@ -6,14 +6,7 @@ import pytest
 
 import sortx
 from sortx import reference
-from tests.conftest import on_tpu, sweep_sizes
-
-
-def _engines():
-    engines = [sortx.Config(engine="host")]
-    if on_tpu():
-        engines.append(sortx.Config(engine="pallas"))
-    return engines
+from tests.conftest import sweep_sizes
 
 
 @pytest.mark.parametrize("n", sweep_sizes())
@@ -21,9 +14,8 @@ def test_sort32_sweep(rng, n):
     # Keys uniform in [0, 0xffffffff] (UnitTest/main.cpp:122).
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     golden = reference.radix_sort(keys)
-    for cfg in _engines():
-        got = np.asarray(sortx.sort(jnp.asarray(keys), config=cfg))
-        assert np.array_equal(got, golden), (cfg.engine, n)
+    got = np.asarray(sortx.sort(jnp.asarray(keys)))
+    assert np.array_equal(got, golden), n
 
 
 def test_sort_ragged_sizes(rng):
@@ -31,9 +23,8 @@ def test_sort_ragged_sizes(rng):
     for n in (1, 2, 13, 255, 257, 1000, 65537):
         keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
         golden = reference.radix_sort(keys)
-        for cfg in _engines():
-            got = np.asarray(sortx.sort(jnp.asarray(keys), config=cfg))
-            assert np.array_equal(got, golden), (cfg.engine, n)
+        got = np.asarray(sortx.sort(jnp.asarray(keys)))
+        assert np.array_equal(got, golden), n
 
 
 @pytest.mark.parametrize("sort_bits", [4, 8, 12, 16, 28, 32])
@@ -41,9 +32,8 @@ def test_sort_partial_bits(rng, sort_bits):
     """sortBits contract: order by low bits only, stable (Pprims.cpp:253)."""
     keys = rng.randint(0, 2**32, size=10_000, dtype=np.uint32)
     golden = reference.radix_sort(keys, sort_bits=sort_bits)
-    for cfg in _engines():
-        got = np.asarray(sortx.sort(jnp.asarray(keys), sort_bits, config=cfg))
-        assert np.array_equal(got, golden), (cfg.engine, sort_bits)
+    got = np.asarray(sortx.sort(jnp.asarray(keys), sort_bits))
+    assert np.array_equal(got, golden), sort_bits
 
 
 def test_sort_skewed_distributions(rng):
@@ -56,17 +46,15 @@ def test_sort_skewed_distributions(rng):
         np.sort(rng.randint(0, 2**32, size=65_536, dtype=np.uint32))[::-1].copy(),
     ):
         golden = reference.radix_sort(keys)
-        for cfg in _engines():
-            got = np.asarray(sortx.sort(jnp.asarray(keys), config=cfg))
-            assert np.array_equal(got, golden), cfg.engine
+        got = np.asarray(sortx.sort(jnp.asarray(keys)))
+        assert np.array_equal(got, golden)
 
 
 def test_sort_int32_natural_order(rng):
     """int32 keys sort in natural signed order (beyond-reference)."""
     keys = rng.randint(-2**31, 2**31, size=4096).astype(np.int32)
-    for cfg in _engines():
-        got = np.asarray(sortx.sort(jnp.asarray(keys), config=cfg))
-        assert np.array_equal(got, np.sort(keys))
+    got = np.asarray(sortx.sort(jnp.asarray(keys)))
+    assert np.array_equal(got, np.sort(keys))
 
 
 def test_sort_float32_order(rng):
@@ -75,20 +63,17 @@ def test_sort_float32_order(rng):
         rng.randn(4000).astype(np.float32) * 1e5,
         np.array([0.0, -0.0, np.inf, -np.inf, 1e-40, -1e-40], np.float32),
     ])
-    for cfg in _engines():
-        got = np.asarray(sortx.sort(jnp.asarray(keys), config=cfg))
-        assert np.array_equal(got, np.sort(keys))
+    got = np.asarray(sortx.sort(jnp.asarray(keys)))
+    assert np.array_equal(got, np.sort(keys))
 
 
 def test_sort_float32_kv_stability(rng):
     keys = rng.randint(0, 8, size=10_000).astype(np.float32)
     vals = np.arange(10_000, dtype=np.uint32)
     order = np.argsort(keys, kind="stable")
-    for cfg in _engines():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               config=cfg)
-        assert np.array_equal(np.asarray(ks), keys[order])
-        assert np.array_equal(np.asarray(vs), order.astype(np.uint32))
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    assert np.array_equal(np.asarray(ks), keys[order])
+    assert np.array_equal(np.asarray(vs), order.astype(np.uint32))
 
 
 def test_sort_validates_args():
@@ -116,28 +101,23 @@ def test_argsort_float(rng):
 
 
 def test_argsort_engine_two_stream(rng):
-    """Engine path: direct 2-stream (masked key, idx) network — stable,
-    partial bits, presorted identity, float keys."""
-    from tests.conftest import on_tpu
-
-    cfg = (sortx.Config(engine="pallas", engine_min_n=0) if on_tpu()
-           else sortx.Config(engine="pallas", interpret=True,
-                             engine_min_n=0, engine_log_block=13))
+    """argsort as a (masked key, idx) sort — stable, partial bits,
+    presorted identity, float keys."""
     n = 12_288
     keys = rng.randint(0, 16, size=n).astype(np.uint32)
-    perm = np.asarray(sortx.argsort(jnp.asarray(keys), config=cfg))
+    perm = np.asarray(sortx.argsort(jnp.asarray(keys)))
     assert np.array_equal(perm, np.argsort(keys, kind="stable"))
 
     ku = rng.randint(0, 2**32, size=n, dtype=np.uint32)
-    perm = np.asarray(sortx.argsort(jnp.asarray(ku), 8, config=cfg))
+    perm = np.asarray(sortx.argsort(jnp.asarray(ku), 8))
     assert np.array_equal(perm, np.argsort(ku & 255, kind="stable"))
 
     pre = np.sort(ku)
-    perm = np.asarray(sortx.argsort(jnp.asarray(pre), config=cfg))
+    perm = np.asarray(sortx.argsort(jnp.asarray(pre)))
     assert np.array_equal(perm, np.arange(n))
 
     f = rng.randn(n).astype(np.float32)
-    perm = np.asarray(sortx.argsort(jnp.asarray(f), config=cfg))
+    perm = np.asarray(sortx.argsort(jnp.asarray(f)))
     assert np.array_equal(perm, np.argsort(f, kind="stable"))
 
 
@@ -170,9 +150,8 @@ def test_sort_reverse_sorted_fast_path(rng):
     """Descending inputs (with ties) flip via the adaptive path."""
     base = np.sort(rng.randint(0, 64, size=50_000).astype(np.uint32))
     desc = base[::-1].copy()
-    for cfg in _engines():
-        got = np.asarray(sortx.sort(jnp.asarray(desc), config=cfg))
-        assert np.array_equal(got, base), cfg.engine
+    got = np.asarray(sortx.sort(jnp.asarray(desc)))
+    assert np.array_equal(got, base)
 
 
 def test_sort_u64_validates_dtype():
@@ -183,37 +162,65 @@ def test_sort_u64_validates_dtype():
 
 @pytest.mark.parametrize("sort_bits", [8, 19, 20])
 def test_partial_bits_packed_tiebreak_engine(rng, sort_bits):
-    """Round-5 (VERDICT item 2a): sort_bits + log_n <= 32 packs the
-    stability tie-break into the key stream's spare bits (one tie-free
-    composite stream). n=8192 -> log_n 13: bits=8 packs, bits=19 packs
-    at the exact 32-bit boundary, bits=20 takes the 3-stream path —
-    all must match the golden oracle bit-for-bit."""
-    from sortx.ops import sort_pallas as sp
-
+    """Partial sort_bits around the 32-bit boundary of sort_bits +
+    log2(n) (n=8192): the masked-key sort must stay stable and match
+    the golden oracle bit-for-bit."""
     n = 8192                          # pow2: exercises the no-pad edge
-    assert sp.packed_partial(n, 8) and sp.packed_partial(n, 19)
-    assert not sp.packed_partial(n, 20)
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     golden = reference.radix_sort(keys, sort_bits)
-    cfg = sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                       engine_log_block=12)
-    got = np.asarray(sortx.sort(jnp.asarray(keys), sort_bits, config=cfg))
+    got = np.asarray(sortx.sort(jnp.asarray(keys), sort_bits))
     assert np.array_equal(got, golden)
 
 
 def test_partial_bits_packed_kv_all_masked_equal(rng):
-    """Adversarial for the packed composite: every masked key equal AND
-    at the mask maximum (composite = mask<<k | idx, the largest real
-    values), pow2 n. Stability must equal input order; values follow."""
+    """Adversarial partial-bits case: every masked key equal AND at the
+    mask maximum, pow2 n. Stability must equal input order; values
+    follow."""
     n = 4096
     sort_bits = 6
     keys = (rng.randint(0, 2**26, size=n).astype(np.uint32) << 6) \
         | np.uint32(63)
     vals = np.arange(n, dtype=np.uint32)
     gk, gv = reference.radix_sort_kv(keys, vals, sort_bits)
-    cfg = sortx.Config(engine="pallas", interpret=True, engine_min_n=0,
-                       engine_log_block=12)
     ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                           sort_bits, config=cfg)
+                           sort_bits)
     assert np.array_equal(np.asarray(ks), gk)
     assert np.array_equal(np.asarray(vs), gv)
+
+
+_DTYPES = [np.uint32, np.int32, np.float32, np.uint16, np.int16,
+           np.float16, "bfloat16"]
+
+
+def _keys_of(rng, dtype, n):
+    """Duplicate-heavy keys of ``dtype`` (ties make stability visible)."""
+    if dtype == "bfloat16":
+        return jnp.asarray(rng.randint(-40, 40, size=n) / 4.0,
+                           jnp.bfloat16)
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        return jnp.asarray((rng.randint(-40, 40, size=n) / 4.0).astype(dt))
+    info = np.iinfo(dt)
+    lo, hi = max(int(info.min), -1000), min(int(info.max), 1000)
+    return jnp.asarray(rng.randint(lo, hi, size=n).astype(dt))
+
+
+@pytest.mark.parametrize("n", [1000, 4097])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_sort_kv_xla_path_matrix(rng, dtype, descending, n):
+    """The XLA path over dtype x descending x ragged n: keys match
+    numpy's order, and values follow stably (stable and unstable
+    requests both get the stable answer)."""
+    keys = _keys_of(rng, dtype, n)
+    k64 = np.asarray(keys.astype(jnp.float32), np.float64)
+    order = np.argsort(-k64 if descending else k64, kind="stable")
+    got = np.asarray(sortx.sort(keys, descending=descending)
+                     .astype(jnp.float32))
+    np.testing.assert_array_equal(got, k64[order])
+    vals = jnp.arange(n, dtype=jnp.int32)
+    for stable in (True, False):
+        ks, vs = sortx.sort_kv(keys, vals, stable=stable,
+                               descending=descending)
+        assert ks.dtype == keys.dtype
+        np.testing.assert_array_equal(np.asarray(vs), order)

@@ -10,14 +10,7 @@ import pytest
 
 import sortx
 from sortx import reference
-from tests.conftest import kv_sweep_sizes, on_tpu
-
-
-def _engines():
-    engines = [sortx.Config(engine="host")]
-    if on_tpu():
-        engines.append(sortx.Config(engine="pallas"))
-    return engines
+from tests.conftest import kv_sweep_sizes
 
 
 @pytest.mark.parametrize("n", kv_sweep_sizes())
@@ -26,11 +19,9 @@ def test_sort_kv_ragged_sweep(rng, n):
     keys = rng.randint(0, 2**32, size=n, dtype=np.uint32)
     vals = np.arange(n, dtype=np.uint32)
     gk, gv = reference.radix_sort_kv(keys, vals)
-    for cfg in _engines():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               config=cfg)
-        assert np.array_equal(np.asarray(ks), gk), (cfg.engine, n)
-        assert np.array_equal(np.asarray(vs), gv), (cfg.engine, n)
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    assert np.array_equal(np.asarray(ks), gk), n
+    assert np.array_equal(np.asarray(vs), gv), n
 
 
 def test_sort_kv_duplicate_heavy_stability(rng):
@@ -38,32 +29,26 @@ def test_sort_kv_duplicate_heavy_stability(rng):
     keys = rng.randint(0, 16, size=100_000).astype(np.uint32)
     vals = np.arange(100_000, dtype=np.uint32)
     gk, gv = reference.radix_sort_kv(keys, vals)
-    for cfg in _engines():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               config=cfg)
-        assert np.array_equal(np.asarray(ks), gk)
-        assert np.array_equal(np.asarray(vs), gv), cfg.engine
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    assert np.array_equal(np.asarray(ks), gk)
+    assert np.array_equal(np.asarray(vs), gv)
 
 
 def test_sort_kv_partial_bits(rng):
     keys = rng.randint(0, 2**32, size=9999, dtype=np.uint32)
     vals = np.arange(9999, dtype=np.uint32)
     gk, gv = reference.radix_sort_kv(keys, vals, sort_bits=12)
-    for cfg in _engines():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals), 12,
-                               config=cfg)
-        assert np.array_equal(np.asarray(ks), gk)
-        assert np.array_equal(np.asarray(vs), gv)
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals), 12)
+    assert np.array_equal(np.asarray(ks), gk)
+    assert np.array_equal(np.asarray(vs), gv)
 
 
 def test_sort_kv_all_equal_keys_keeps_value_order():
     n = 50_000
     keys = np.full(n, 42, dtype=np.uint32)
     vals = np.arange(n, dtype=np.uint32)
-    for cfg in _engines():
-        ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                               config=cfg)
-        assert np.array_equal(np.asarray(vs), vals), cfg.engine
+    ks, vs = sortx.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    assert np.array_equal(np.asarray(vs), vals)
 
 
 def test_sort_kv_shape_mismatch():

@@ -78,6 +78,6 @@ import __graft_entry__ as g
 fn, args = g.entry()
 jax.jit(fn)(*args)
 check("entry() compiles+runs", True)
-g.dryrun_multichip(8)
+g.dryrun_multichip(8, cpu=True)
 check("dryrun_multichip(8)", True)
 print("ALL CPU CHECKS PASSED")
